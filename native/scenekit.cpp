@@ -1,14 +1,14 @@
 // scenekit — native host-side scene tooling for raytracer_js_tpu.
 //
 // The reference engine has no native code (pure TypeScript, SURVEY.md §2);
-// these are the TPU framework's runtime-side native components: the octree
+// these are the framework's runtime-side native components: the octree
 // CSR build (octree_entity.ts's insertion pass re-expressed as a batch
 // scatter — a per-primitive Python loop is the scene-build bottleneck at the
 // 1M-primitive BASELINE config 5) and an OBJ mesh loader feeding the
 // triangle tables (new capability; the reference's triangle entity is a
 // stub, entities/entity_face.ts:17).
 //
-// Build: make -C native   (g++ -O3 -shared -fPIC)
+// Build: make -C native   (g++ -O3 -shared -fPIC -> native/build/)
 // ABI: plain C, driven from Python via ctypes (no pybind11 in this image).
 
 #include <cstdint>

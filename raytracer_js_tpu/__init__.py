@@ -1,12 +1,12 @@
-"""raytracer_js_tpu — a TPU-native differentiable raytracing framework.
+"""raytracer_js_tpu — a differentiable raytracing framework in JAX.
 
 Brand-new JAX/XLA/Pallas re-design with the capabilities of the reference
 engine Dark565/raytracer.js (browser TypeScript CPU raytracer with a dynamic
 octree): camera ray generation, octree-accelerated nearest-hit search,
 reflection/refraction/scatter shading with sky fallback and inverse-square
 light attenuation, progressive exposure accumulation, and tone mapping —
-plus new TPU-mandated capability: batched wavefront tracing, Pallas kernels,
-multi-chip sharding, and end-to-end differentiability for inverse rendering.
+plus new capability: batched wavefront tracing, a Pallas (Triton) kernel,
+multi-device sharding, and end-to-end differentiability for inverse rendering.
 """
 from .config import (
     HitBackend,

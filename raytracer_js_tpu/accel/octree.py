@@ -1,6 +1,6 @@
 """Flat Morton-coded octree acceleration structure.
 
-TPU re-design of the reference's pointer-based dynamic octree
+Re-design of the reference's pointer-based dynamic octree
 (/root/reference/src/octree.ts, octree_space.ts, octree_entity.ts): instead
 of heap nodes with parent pointers, the build quantizes every primitive AABB
 to its *covering node* — the deepest axis-aligned cube cell that fully
@@ -37,7 +37,7 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 from ..config import OctreeConfig
 from ..models.scene import Scene
@@ -45,7 +45,7 @@ from ..models.scene import Scene
 Array = jnp.ndarray
 
 
-@struct.dataclass
+@pytree.dataclass
 class OctreeAccel:
     # root cube (covers every primitive AABB)
     root_lo: Array          # [3] f32
@@ -61,9 +61,9 @@ class OctreeAccel:
     #: space instead of marching cell by cell (a sky-grazing ray at R=256
     #: otherwise forces ~700 full-width while_loop steps on every batch)
     skip_dist: Array        # [R^3] u8
-    max_depth: int = struct.field(pytree_node=False, default=4)
-    l_cut: int = struct.field(pytree_node=False, default=1)
-    max_per_cell: int = struct.field(pytree_node=False, default=8)
+    max_depth: int = pytree.field(pytree_node=False, default=4)
+    l_cut: int = pytree.field(pytree_node=False, default=1)
+    max_per_cell: int = pytree.field(pytree_node=False, default=8)
 
     @property
     def res(self) -> int:

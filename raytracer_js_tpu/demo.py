@@ -7,7 +7,7 @@ progressive exposure ticks, FPS HUD — main.ts:341-433), this module does as
 a CLI: generate the same *kind* of scene deterministically from a seed,
 render ``--frames`` progressive exposure frames, tone-map, write a PNG, and
 print the throughput stats the HUD showed (SURVEY.md §2 #33: interactivity
-is out of scope on TPU; batch rendering replaces it).
+is out of scope on an accelerator; batch rendering replaces it).
 
 Run: ``python -m raytracer_js_tpu.demo --seed 42 --size 128 --out demo.png``
 """

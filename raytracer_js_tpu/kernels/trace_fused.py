@@ -1,1164 +1,648 @@
-"""Fused full-trace Pallas kernel.
+"""Whole-trace ray kernel (Pallas, Triton route).
 
-The whole wavefront bounce loop (ops/trace.trace_rays) for the *restricted
-scene class* — solid textures, solid sky, no transmission, zero roughness —
-executed inside one kernel launch: ray state (origin, direction, color,
-path, status) never leaves VMEM between bounces, primitives stream as
-lane-replicated row broadcasts (see kernels/nearest_hit scalar variant),
-and the winning primitive's normal and shading attributes ride the
-running-min carry, so there is no per-ray gather anywhere.
+The bounce loop of :func:`raytracer_js_tpu.ops.trace.trace_rays` for the
+scene class :func:`supports` admits, run inside one kernel launch. Each
+program traces a 1-D block of ``BLOCK`` rays with one ray per thread; the
+ray state (origin, direction, color, path, status, substance) stays in
+registers across bounces, and primitives are read by scalar loads from small
+per-class tables that stay in L1/L2. The dense XLA path instead writes
+``[N, P]`` hit matrices and per-bounce ray state to device memory.
 
-Two entry points share one kernel core (``_trace_core``):
+Two entry points share the kernel body:
 
-- :func:`trace_rays_fused` — arbitrary ray wavefront in, colors out. This is
-  the exact-parity path: bit-identical to ops/trace.trace_rays for the
-  restricted class (golden tests assert lane-for-lane equality).
-- :func:`trace_frame_fused` — the headline full-frame path. Ray generation
-  happens *inside* the kernel (pixel (x, y) decoded from the ray index, the
-  equiangular camera direction computed from SMEM pose scalars), so the XLA
-  raygen + column-packing stage and its ~50 MB of HBM ray traffic vanish.
-  Because camera directions are unit by construction and mirror reflections
-  preserve the norm, this path also drops the |d|^2 terms from every sphere
-  candidate (``unit_d``), and bounce 0's shared origin lets the sphere
-  quadratic constant c0 = o.o - 2 o.c + (c.c - r^2) be folded host-side
-  (``has_c0``). Numerics differ from the wavefront path only in ULPs
-  (tested at 1e-5 tolerance, not bitwise).
+- :func:`trace_rays_fused` — a wavefront of rays in, colors and statuses out.
+- :func:`trace_frame_fused` — a whole frame; rays are generated inside the
+  kernel from the pixel index and per-row / per-column angle tables
+  (:func:`raytracer_js_tpu.models.camera.angle_tables`, the same terms as
+  ``pixel_rays``), so no ray tensor exists in device memory.
 
-This is the headline-benchmark path (BASELINE configs 1-2 class scenes are
-exactly this restricted class). Unrestricted scenes fall back to the XLA
-wavefront loop (ops/trace), which remains the semantic reference.
+Every formula is written term for term like the XLA path it replaces
+(``ops/intersect`` hit tests and surface recompute, ``ops/trace._bounce``
+shading, ``ops/trace.substance_refr_at``, ``ops/sampling`` scatter), so the
+two agree to rounding. Division is IEEE round-to-nearest (``div.rn.f32``):
+Triton lowers ``/`` to the approximate ``div.full.f32``.
 
-Semantics (all mirrored from ops/trace._bounce, raytracer.ts:166-277):
-hit -> color *= prim rgb, path += t; emissive -> LIGHT + ISL at the end;
-mirror REFLECTION -> reflect + eps-advance; non-mirror/BOTH -> KEEP;
+Semantics (raytracer.ts:166-277): hit -> color *= prim rgb, path += t;
+emissive -> LIGHT with the inverse-square law at the end; mirror REFLECTION
+-> reflect (+ roughness scatter) and eps-advance; TRANSMISSION -> eps-advance,
+innermost-containment substance, Snell with TIR; non-mirror -> KEEP;
 miss -> color *= sky, MISS; refmax exhaustion -> black EXHAUST.
+
+On the CPU the kernel runs in the Pallas interpreter (tests); on a GPU it
+compiles through Triton; any other backend raises.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..config import EPS_ADVANCE, JS_EPSILON, RayStatus, RenderConfig, ResponseType
-from ..models.scene import Scene
+from ..models.camera import angle_tables
+from ..models.scene import Scene, prim_volumes
 from ..ops import sampling
-import os
-
-from .nearest_hit import SP_LANE, _ray_cols, _row, pack_replicated
-
-#: ray-tile sublanes for the fused kernel (rays per program = FUSE_SUB*128).
-#: Tunable via RT_FUSE_SUB; smaller tiles reduce VMEM pressure of the
-#: per-bounce live set and pipeline better — measured on a v5e at 1080p,
-#: 50 spheres, 2 bounces: 256 -> 5.52 ms, 64 -> 3.85 ms, 32 -> 3.69 ms.
-FUSE_SUB = int(os.environ.get("RT_FUSE_SUB", "32"))
+from ..ops.intersect import MT_EPS, SLAB_DIR_EPS
+from ..ops.vecmath import normalize
 
 Array = jnp.ndarray
 
-_INF = float(np.inf)
-_SLAB_EPS = 1e-12
-_MT_EPS = 1e-9
+#: rays per program (one per thread at NUM_WARPS warps of 32 threads)
+BLOCK = 128
+NUM_WARPS = 4
 
+_INF = float("inf")
 _ALIVE = int(RayStatus.ALIVE)
 _LIGHT = int(RayStatus.LIGHT)
 _KEEP = int(RayStatus.KEEP)
 _MISS = int(RayStatus.MISS)
 _EXHAUST = int(RayStatus.EXHAUST)
 
+# Per-class table columns (row-major [n, COLS], flattened). ``mode`` packs
+# the response: 0 keep, 1 mirror continuation, 2 emissive, 3 transmission.
+# ``refr`` is the substance index (-1 = undefined), ``vol`` the enclosed
+# volume of the innermost-containment rule.
+S_C, S_R, S_R2, S_RGB, S_MODE, S_ROUGH, S_REFR, S_VOL, S_COLS = (
+    0, 3, 4, 5, 8, 9, 10, 11, 12)
+B_LO, B_HI, B_C, B_H, B_RGB, B_MODE, B_ROUGH, B_REFR, B_VOL, B_COLS = (
+    0, 3, 6, 9, 12, 15, 16, 17, 18, 19)
+T_V0, T_E1, T_E2, T_N, T_RGB, T_MODE, T_ROUGH, T_COLS = (
+    0, 3, 6, 9, 12, 15, 16, 17)
 
-def _unroll(n: int) -> int | bool:
-    """Mosaic fori_loop lowering supports only full unroll or none."""
-    return n if 0 < n <= 128 else 1
+# scalar parameter slots (f32 / i32 vectors read by scalar loads)
+_F_SKY, _F_REFR0, _F_REFR_DEF, _F_POS, _F_FRONT, _F_LEFT, _F_UP = (
+    0, 3, 4, 5, 8, 11, 14)
+_F_LEN = 17
+_I_SEED, _I_SPP, _I_SAMPLE = 0, 1, 2
+_I_LEN = 3
 
 
-class ExtRows(NamedTuple):
-    """Static row indices of the optional prim-table rows (-1 = absent):
-    per-class roughness, and the transmission substance/volume columns."""
-    s_rough: int = -1
-    b_rough: int = -1
-    t_rough: int = -1
-    s_refr: int = -1
-    s_vol: int = -1
-    b_refr: int = -1
-    b_vol: int = -1
+class Meta(NamedTuple):
+    """Static description of one kernel instance."""
+    n_sph: int
+    n_box: int
+    n_tri: int
+    refmax: int
+    atten: float
+    has_rough: bool
+    has_trans: bool
+    exact_div: bool       # inline div.rn.f32 (compiled) vs ``/`` (interpreter)
 
 
 def supports(scene: Scene) -> bool:
-    """Static eligibility for the fused kernel.
-
-    Transmission (in-kernel containment scan + Snell/TIR) and roughness
-    (in-kernel counter-RNG scatter, ops/sampling) are handled since r2;
-    image textures remain the one exclusion (atlas gathers need dynamic
-    lane indexing Mosaic does not have — those scenes route to TILED/PALLAS);
-    cube-map skies likewise sample per-face textures in the glue.
-    ResponseType.BOTH scenes route to the XLA paths (the kernel's mode
-    decode has no Fresnel-split branch — ops/trace._bounce owns it).
-    """
+    """Scenes the kernel traces: solid textures and a solid sky sphere,
+    no ResponseType.BOTH. Image textures, sky boxes and BOTH scenes render
+    on the XLA path (render.py routes them to BRUTE)."""
     return (not scene.textures.has_images and scene.sky_box is None
             and not scene.has_both)
 
 
-def _trace_core(ox, oy, oz, dx, dy, dz,
-                sph_ref, box_ref, tri_ref, sky_ref, sid_ref,
-                cr_ref, cg_ref, cb_ref, st_ref,
-                *, n_sph, n_box, n_tri, s_pad, b_pad, r_pad,
-                refmax, atten, use_short, unit_d, has_c0,
-                tab_ref=None, dyn_short=False, tab_row=0,
-                ext=(), rid=None, seed=None, refr0=None, refr_def=None):
-    """Shared bounce-loop body. ``ox/oy/oz`` may be rank-0 (shared camera
-    origin, frame path) or [SUB, LANE] tiles (wavefront path); ``unit_d``
-    statically drops the |d|^2 quadratic terms (valid when every incoming
-    direction is unit — reflections preserve the norm); ``has_c0`` reads the
-    host-folded bounce-0 sphere constant from table row 9; ``dyn_short``
-    makes bounce 0's sphere loops run over the per-tile compact id list in
-    row ``tab_row`` of ``tab_ref`` (SMEM, full table: one [cnt, id-pairs...]
-    row per tile — TPU lowering rejects sub-8-row SMEM blocks, so programs
-    share the whole table and pick their row by scalar index).
+def use_interpreter() -> bool:
+    """True on the CPU (tests run the kernel in the Pallas interpreter),
+    False on a GPU (compiled through Triton); other backends raise."""
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise RuntimeError(
+        f"trace_fused has no kernel route for backend {backend!r}")
 
-    ``ext`` is the static extended-class descriptor from
-    :func:`_pack_prims` — a tuple ``(has_rough, has_trans, row-index...)``
-    gating the roughness-scatter and transmission code paths (compiled out
-    entirely for the restricted class). ``rid`` (global ray-id tile),
-    ``seed`` (uint32 scalar), ``refr0``/``refr_def`` (start / empty-space
-    refractive-index scalars) feed those paths."""
-    has_rough, has_trans = (ext[0], ext[1]) if ext else (False, False)
-    rows_ix = ext[2] if ext else ExtRows()
-    shape = dx.shape
-    col_r = jnp.ones(shape, jnp.float32)
-    col_g = jnp.ones(shape, jnp.float32)
-    col_b = jnp.ones(shape, jnp.float32)
-    path = jnp.zeros(shape, jnp.float32)
-    status = jnp.full(shape, _ALIVE, jnp.int32)
-    # per-ray refractive-index plane only exists for transmission scenes
-    # (the restricted-class bounce-loop carry stays 11 arrays)
-    refr = (jnp.broadcast_to(refr0, shape).astype(jnp.float32)
-            if has_trans else None)
-    sky_r = sky_ref[0:1, :]
-    sky_g = sky_ref[1:2, :]
-    sky_b = sky_ref[2:3, :]
 
-    def safe_inv(d):
-        tiny = jnp.abs(d) < _SLAB_EPS
-        d_safe = jnp.where(tiny, jnp.where(d < 0, -_SLAB_EPS, _SLAB_EPS), d)
-        return 1.0 / d_safe
+# ---------------------------------------------------------------------------
+# kernel body
+# ---------------------------------------------------------------------------
 
-    blk = pl.program_id(0)
+def _div(x, y, exact: bool):
+    """x / y, correctly rounded on the GPU (see module docstring)."""
+    if not exact:
+        return x / y
+    x, y = jnp.broadcast_arrays(jnp.asarray(x, jnp.float32),
+                                jnp.asarray(y, jnp.float32))
+    return pltriton.elementwise_inline_asm(
+        "div.rn.f32 $0, $1, $2;", args=[x, y], constraints="=f,f,f",
+        pack=1, result_shape_dtypes=[jax.ShapeDtypeStruct(x.shape,
+                                                          jnp.float32)])[0]
 
-    def _one_bounce(state, short, first, b_idx):
-        """One traverse->intersect->shade->respawn pass over the tile."""
-        (ox, oy, oz, dx, dy, dz, col_r, col_g, col_b, path,
-         status) = state[:11]
-        refr = state[11] if has_trans else None
+
+def _ld3(ref, base, col):
+    return ref[base + col], ref[base + col + 1], ref[base + col + 2]
+
+
+def _trace(o, d, rid, f_ref, i_ref, s_ref, b_ref, t_ref, m: Meta):
+    """Trace one block of rays -> (r, g, b, status) planes.
+
+    ``o`` is a triple of scalars (shared origin) or of [BLOCK] planes; ``d``
+    a triple of [BLOCK] planes. Tables are flat refs read by scalar loads
+    (search) and per-ray gathers (winner attributes)."""
+    div = functools.partial(_div, exact=m.exact_div)
+    shape = d[0].shape
+    f32 = jnp.float32
+    sky = _ld3(f_ref, 0, _F_SKY)
+    seed = (i_ref[_I_SEED].astype(jnp.uint32) if m.has_rough else None)
+    refr_def = f_ref[_F_REFR_DEF]
+    s_end, b_end = m.n_sph, m.n_sph + m.n_box
+
+    def safe_inv(v):
+        v = jnp.where(jnp.abs(v) < SLAB_DIR_EPS,
+                      jnp.where(v < 0, -SLAB_DIR_EPS, SLAB_DIR_EPS), v)
+        return div(1.0, v)
+
+    def bounce(state, b_idx):
+        (ox, oy, oz), (dx, dy, dz), (cr, cg, cb), path, status, refr = state
         alive = status == _ALIVE
-        if not unit_d:
-            a = dx * dx + dy * dy + dz * dz
-            inv_a = 1.0 / a
-        o_dot_d = ox * dx + oy * dy + oz * dz
-        o_dot_o = ox * ox + oy * oy + oz * oz
+        a = dx * dx + dy * dy + dz * dz
+        inv_a = div(1.0, a)
         ix, iy, iz = safe_inv(dx), safe_inv(dy), safe_inv(dz)
 
-        zero = jnp.zeros(shape, jnp.float32)
+        # ---- nearest forward hit (ops/intersect *_hit_t, first minimum) --
+        def sph_hit(p, best):
+            bt, bp = best
+            base = p * S_COLS
+            cx, cy, cz = _ld3(s_ref, base, S_C)
+            ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+            bh = ocx * dx + ocy * dy + ocz * dz
+            c = (ocx * ocx + ocy * ocy + ocz * ocz) - s_ref[base + S_R2]
+            disc = bh * bh - a * c
+            valid = disc >= 0.0
+            sq = jnp.sqrt(jnp.where(valid, disc, 0.0))
+            tn = (-bh - sq) * inv_a
+            tf = (-bh + sq) * inv_a
+            t = jnp.where(tn >= 0.0, tn, jnp.where(tf >= 0.0, tf, _INF))
+            u = valid & (t < bt)
+            return jnp.where(u, t, bt), jnp.where(u, p, bp)
 
-        # ---- phase 1: hit search. Carry is (t, pid) ONLY — winner
-        # attributes are extracted afterwards by pid-match, so each
-        # candidate costs ~half the VPU ops of the attribute-carrying
-        # variant (no per-candidate normal, no 8-wide select cascade).
-        best = (jnp.full(shape, _INF, jnp.float32),
-                jnp.full(shape, -1, jnp.int32))
+        def box_hit(p, best):
+            bt, bp = best
+            base = p * B_COLS
+            lx, ly, lz = _ld3(b_ref, base, B_LO)
+            hx, hy, hz = _ld3(b_ref, base, B_HI)
+            t_in, t_out = _slab(ox, oy, oz, ix, iy, iz, lx, ly, lz,
+                                hx, hy, hz)[:2]
+            t = jnp.where(t_in >= 0.0, t_in,
+                          jnp.where(t_out >= 0.0, t_out, _INF))
+            u = (t_in <= t_out) & (t < bt)
+            return jnp.where(u, t, bt), jnp.where(u, p + s_end, bp)
 
-        def upd(best, t, p_glob):
-            t_best, pid = best
-            u = t < t_best
-            return jnp.where(u, t, t_best), jnp.where(u, p_glob, pid)
+        def tri_hit(p, best):
+            bt, bp = best
+            t, ok = _moller_trumbore(t_ref, p * T_COLS, ox, oy, oz,
+                                     dx, dy, dz, div)
+            u = ok & (t < bt)
+            return jnp.where(u, t, bt), jnp.where(u, p + b_end, bp)
 
-        def upd_if(best, t, valid, p_glob):
-            """Running-min update with the forward/validity filter folded
-            into the update predicate — selecting the same floats as
-            masking t to INF first, ~5 fewer VPU ops per candidate."""
-            t_best, pid = best
-            u = (t < t_best) & valid
-            return jnp.where(u, t, t_best), jnp.where(u, p_glob, pid)
+        best = (jnp.full(shape, _INF, f32), jnp.full(shape, -1, jnp.int32))
+        for n, body in ((m.n_sph, sph_hit), (m.n_box, box_hit),
+                        (m.n_tri, tri_hit)):
+            if n:
+                best = jax.lax.fori_loop(0, n, body, best)
+        _t_best, pid = best
 
-        # sphere rows: cx cy cz ccmr inv_r | r g b mode [| c0]
-        def sph_body(p, best):
-            cx = _row(sph_ref, 0, p)
-            cy = _row(sph_ref, s_pad, p)
-            cz = _row(sph_ref, 2 * s_pad, p)
-            b_half = o_dot_d - (dx * cx + dy * cy + dz * cz)
-            if first and has_c0:
-                # bounce 0 shares one origin: the whole quadratic constant
-                # was folded host-side into table row 9
-                c = _row(sph_ref, 9 * s_pad, p)
-            else:
-                ccmr = _row(sph_ref, 3 * s_pad, p)
-                c = o_dot_o - 2.0 * (ox * cx + oy * cy + oz * cz) + ccmr
-            disc = b_half * b_half - (c if unit_d else a * c)
-            sq = jnp.sqrt(jnp.maximum(disc, 0.0))
-            if unit_d:
-                t_near = -b_half - sq
-                t_far = sq - b_half
-            else:
-                t_near = (-b_half - sq) * inv_a
-                t_far = (-b_half + sq) * inv_a
-            # first-forward param: t_near if >=0 else t_far if >=0 else miss
-            t = jnp.where(t_near >= 0.0, t_near, t_far)
-            return upd_if(best, t, (disc >= 0.0) & (t >= 0.0), p)
+        # ---- winner surface (ops/intersect *_surface, one per class) ----
+        zero = jnp.zeros(shape, f32)
+        px = py = pz = nx = ny = nz = t_s = zero
+        rgb = (zero, zero, zero)
+        mode = rough = zero
+        if m.n_sph:
+            base = jnp.clip(pid, 0, m.n_sph - 1) * S_COLS
+            cx, cy, cz = _ld3(s_ref, base, S_C)
+            ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+            bh = ocx * dx + ocy * dy + ocz * dz
+            c = (ocx * ocx + ocy * ocy + ocz * ocz) - s_ref[base + S_R2]
+            disc = bh * bh - a * c
+            pos = disc > 0.0
+            sq = jnp.sqrt(jnp.where(pos, disc, 1.0)) * pos.astype(f32)
+            tn = div(-bh - sq, a)
+            t = jnp.where(tn >= 0.0, tn, div(-bh + sq, a))
+            qx, qy, qz = ox + t * dx, oy + t * dy, oz + t * dz
+            r = s_ref[base + S_R]
+            r = jnp.where(jnp.abs(r) < 1e-12, 1e-12, r)
+            sx, sy, sz = div(qx - cx, r), div(qy - cy, r), div(qz - cz, r)
+            flip = (dx * sx + dy * sy + dz * sz) > 0.0
+            sx, sy, sz = (jnp.where(flip, -sx, sx), jnp.where(flip, -sy, sy),
+                          jnp.where(flip, -sz, sz))
+            m_s = pid < s_end
+            px, py, pz = (jnp.where(m_s, qx, px), jnp.where(m_s, qy, py),
+                          jnp.where(m_s, qz, pz))
+            nx, ny, nz = (jnp.where(m_s, sx, nx), jnp.where(m_s, sy, ny),
+                          jnp.where(m_s, sz, nz))
+            t_s = jnp.where(m_s, t, t_s)
+            rgb = tuple(jnp.where(m_s, v, w)
+                        for v, w in zip(_ld3(s_ref, base, S_RGB), rgb))
+            mode = jnp.where(m_s, s_ref[base + S_MODE], mode)
+            if m.has_rough:
+                rough = jnp.where(m_s, s_ref[base + S_ROUGH], rough)
+        if m.n_box:
+            base = jnp.clip(pid - s_end, 0, m.n_box - 1) * B_COLS
+            lx, ly, lz = _ld3(b_ref, base, B_LO)
+            hx, hy, hz = _ld3(b_ref, base, B_HI)
+            t_in, t_out, (e0, e1, _e2), (x0, x1, _x2) = _slab(
+                ox, oy, oz, ix, iy, iz, lx, ly, lz, hx, hy, hz)
+            entering = t_in >= 0.0
+            t = jnp.where(entering, t_in, t_out)
+            a0 = jnp.where(entering, e0, x0)
+            a1 = jnp.where(entering, e1, x1) & ~a0
+            a2 = ~(a0 | a1)
+            a0, a1, a2 = a0.astype(f32), a1.astype(f32), a2.astype(f32)
+            d_axis = dx * a0 + dy * a1 + dz * a2
+            sign = jnp.where(d_axis < 0.0, -1.0, 1.0)
+            m_b = (pid >= s_end) & (pid < b_end)
+            px = jnp.where(m_b, ox + t * dx, px)
+            py = jnp.where(m_b, oy + t * dy, py)
+            pz = jnp.where(m_b, oz + t * dz, pz)
+            nx = jnp.where(m_b, -sign * a0, nx)
+            ny = jnp.where(m_b, -sign * a1, ny)
+            nz = jnp.where(m_b, -sign * a2, nz)
+            t_s = jnp.where(m_b, t, t_s)
+            rgb = tuple(jnp.where(m_b, v, w)
+                        for v, w in zip(_ld3(b_ref, base, B_RGB), rgb))
+            mode = jnp.where(m_b, b_ref[base + B_MODE], mode)
+            if m.has_rough:
+                rough = jnp.where(m_b, b_ref[base + B_ROUGH], rough)
+        if m.n_tri:
+            base = jnp.clip(pid - b_end, 0, m.n_tri - 1) * T_COLS
+            t, _ok = _moller_trumbore(t_ref, base, ox, oy, oz, dx, dy, dz,
+                                      div)
+            gx, gy, gz = _ld3(t_ref, base, T_N)
+            flip = (dx * gx + dy * gy + dz * gz) > 0.0
+            m_t = pid >= b_end
+            px = jnp.where(m_t, ox + t * dx, px)
+            py = jnp.where(m_t, oy + t * dy, py)
+            pz = jnp.where(m_t, oz + t * dz, pz)
+            nx = jnp.where(m_t, jnp.where(flip, -gx, gx), nx)
+            ny = jnp.where(m_t, jnp.where(flip, -gy, gy), ny)
+            nz = jnp.where(m_t, jnp.where(flip, -gz, gz), nz)
+            t_s = jnp.where(m_t, t, t_s)
+            rgb = tuple(jnp.where(m_t, v, w)
+                        for v, w in zip(_ld3(t_ref, base, T_RGB), rgb))
+            mode = jnp.where(m_t, t_ref[base + T_MODE], mode)
+            if m.has_rough:
+                rough = jnp.where(m_t, t_ref[base + T_ROUGH], rough)
 
-        def tab_id(j):
-            """Shortlisted sphere id j from the SMEM pair-packed id table
-            (word 0 = count, then two 16-bit ids per word, low half first)."""
-            word = tab_ref[tab_row, 1 + j // 2]
-            return (word >> (16 * (j % 2))) & 0xFFFF
-
-        if first and dyn_short:
-            # per-tile compact shortlist: a dynamic-trip-count loop over
-            # only the spheres whose cone test passed host-side. Exact
-            # culling (a rejected sphere cannot be hit by any tile ray), so
-            # the winner is identical to the full scan.
-            best = jax.lax.fori_loop(
-                0, tab_ref[tab_row, 0], lambda j, b: sph_body(tab_id(j), b), best)
-        elif short:
-            # bitmask culling: a Python-unrolled loop with STATIC row
-            # indices, where each candidate's ~30 vector ops hide behind a
-            # scalar branch on its per-block cone-test bit (SMEM). Culled
-            # spheres cost one branch instead of a full quadratic test.
-            for p in range(n_sph):
-                bit = (sid_ref[blk, p // 32] >> (p % 32)) & 1
-                best = jax.lax.cond(
-                    bit > 0, lambda b, p=p: sph_body(p, b),
-                    lambda b: b, best)
-        else:
-            best = jax.lax.fori_loop(0, n_sph, sph_body, best,
-                                     unroll=_unroll(n_sph))
-
-        # box rows: cx cy cz hx hy hz | r g b mode  (10 blocks)
-        def box_body(p, best):
-            cx = _row(box_ref, 0, p)
-            cy = _row(box_ref, b_pad, p)
-            cz = _row(box_ref, 2 * b_pad, p)
-            hx = _row(box_ref, 3 * b_pad, p)
-            hy = _row(box_ref, 4 * b_pad, p)
-            hz = _row(box_ref, 5 * b_pad, p)
-            tax = (cx - hx - ox) * ix
-            tbx = (cx + hx - ox) * ix
-            tay = (cy - hy - oy) * iy
-            tby = (cy + hy - oy) * iy
-            taz = (cz - hz - oz) * iz
-            tbz = (cz + hz - oz) * iz
-            t_enter = jnp.maximum(jnp.maximum(jnp.minimum(tax, tbx),
-                                              jnp.minimum(tay, tby)),
-                                  jnp.minimum(taz, tbz))
-            t_exit = jnp.minimum(jnp.minimum(jnp.maximum(tax, tbx),
-                                             jnp.maximum(tay, tby)),
-                                 jnp.maximum(taz, tbz))
-            t = jnp.where(t_enter >= 0.0, t_enter, t_exit)
-            return upd_if(best, t, (t_enter <= t_exit) & (t >= 0.0),
-                          p + n_sph)
-
-        best = jax.lax.fori_loop(0, n_box, box_body, best, unroll=_unroll(n_box))
-
-        # tri rows: v0(3) v1(3) v2(3) gn(3) | r g b mode  (16 blocks)
-        def tri_body(p, best):
-            v0x = _row(tri_ref, 0, p)
-            v0y = _row(tri_ref, r_pad, p)
-            v0z = _row(tri_ref, 2 * r_pad, p)
-            e1x = _row(tri_ref, 3 * r_pad, p) - v0x
-            e1y = _row(tri_ref, 4 * r_pad, p) - v0y
-            e1z = _row(tri_ref, 5 * r_pad, p) - v0z
-            e2x = _row(tri_ref, 6 * r_pad, p) - v0x
-            e2y = _row(tri_ref, 7 * r_pad, p) - v0y
-            e2z = _row(tri_ref, 8 * r_pad, p) - v0z
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            inv_det = 1.0 / jnp.where(jnp.abs(det) < _MT_EPS, _MT_EPS, det)
-            sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-            u = (sx * px + sy * py + sz * pz) * inv_det
-            qx = sy * e1z - sz * e1y
-            qy = sz * e1x - sx * e1z
-            qz = sx * e1y - sy * e1x
-            v = (dx * qx + dy * qy + dz * qz) * inv_det
-            t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-            ok = ((jnp.abs(det) >= _MT_EPS) & (u >= 0.0) & (v >= 0.0)
-                  & (u + v <= 1.0) & (t >= 0.0))
-            return upd_if(best, t, ok, p + n_sph + n_box)
-
-        best = jax.lax.fori_loop(0, n_tri, tri_body, best, unroll=_unroll(n_tri))
-
-        t_best, pid = best
-
-        # ---- phase 2: winner attribute extraction by pid match. One
-        # lane-replicated row select cascade per primitive, then ONE
-        # normal recompute per class per bounce (instead of per candidate).
-        one = jnp.ones(shape, jnp.float32)
-        wr, wg, wb = one, one, one
-        # response mode: 2 = emissive, 1 = mirror continuation, 0 = keep
-        # (one row instead of separate light/cont rows: one fewer pick
-        # select per candidate per bounce)
-        w_mode = zero
-        # sphere winner params
-        s_cx, s_cy, s_cz, s_ir = zero, zero, zero, zero
-        # box winner params
-        b_cx, b_cy, b_cz = zero, zero, zero
-        b_hx, b_hy, b_hz = zero, zero, zero
-        # triangle winner normal
-        t_nx, t_ny, t_nz = zero, zero, zero
-
-        # winner roughness rides the pick carries only for rough scenes
-        w_rough = zero
-
-        def sph_pick(p, acc):
-            wr, wg, wb, wm, cx, cy, cz, ir = acc[:8]
-            m = pid == p
-            out = (jnp.where(m, _row(sph_ref, 5 * s_pad, p), wr),
-                   jnp.where(m, _row(sph_ref, 6 * s_pad, p), wg),
-                   jnp.where(m, _row(sph_ref, 7 * s_pad, p), wb),
-                   jnp.where(m, _row(sph_ref, 8 * s_pad, p), wm),
-                   jnp.where(m, _row(sph_ref, 0, p), cx),
-                   jnp.where(m, _row(sph_ref, s_pad, p), cy),
-                   jnp.where(m, _row(sph_ref, 2 * s_pad, p), cz),
-                   jnp.where(m, _row(sph_ref, 4 * s_pad, p), ir))
-            if has_rough:
-                out += (jnp.where(
-                    m, _row(sph_ref, rows_ix.s_rough * s_pad, p), acc[8]),)
-            return out
-
-        sph_pick_acc = (wr, wg, wb, w_mode, s_cx, s_cy, s_cz, s_ir)
-        if has_rough:
-            sph_pick_acc += (w_rough,)
-        if first and dyn_short:
-            # the phase-1 winner is always shortlist-included, so the pick
-            # scan may run over the same compact id list
-            sph_pick_acc = jax.lax.fori_loop(
-                0, tab_ref[tab_row, 0],
-                lambda j, acc: sph_pick(tab_id(j), acc), sph_pick_acc)
-        elif short:
-            # the phase-1 winner is always mask-included, so the pick scan
-            # may skip culled spheres the same way
-            for p in range(n_sph):
-                bit = (sid_ref[blk, p // 32] >> (p % 32)) & 1
-                sph_pick_acc = jax.lax.cond(
-                    bit > 0, lambda acc, p=p: sph_pick(p, acc),
-                    lambda acc: acc, sph_pick_acc)
-        else:
-            sph_pick_acc = jax.lax.fori_loop(0, n_sph, sph_pick,
-                                             sph_pick_acc,
-                                             unroll=_unroll(n_sph))
-        (wr, wg, wb, w_mode, s_cx, s_cy, s_cz, s_ir) = sph_pick_acc[:8]
-        if has_rough:
-            w_rough = sph_pick_acc[8]
-
-        def box_pick(p, acc):
-            wr, wg, wb, wm, cx, cy, cz, hx, hy, hz = acc[:10]
-            m = pid == p + n_sph
-            out = (jnp.where(m, _row(box_ref, 6 * b_pad, p), wr),
-                   jnp.where(m, _row(box_ref, 7 * b_pad, p), wg),
-                   jnp.where(m, _row(box_ref, 8 * b_pad, p), wb),
-                   jnp.where(m, _row(box_ref, 9 * b_pad, p), wm),
-                   jnp.where(m, _row(box_ref, 0, p), cx),
-                   jnp.where(m, _row(box_ref, b_pad, p), cy),
-                   jnp.where(m, _row(box_ref, 2 * b_pad, p), cz),
-                   jnp.where(m, _row(box_ref, 3 * b_pad, p), hx),
-                   jnp.where(m, _row(box_ref, 4 * b_pad, p), hy),
-                   jnp.where(m, _row(box_ref, 5 * b_pad, p), hz))
-            if has_rough:
-                out += (jnp.where(
-                    m, _row(box_ref, rows_ix.b_rough * b_pad, p), acc[10]),)
-            return out
-
-        box_pick_acc = (wr, wg, wb, w_mode, b_cx, b_cy, b_cz,
-                        b_hx, b_hy, b_hz)
-        if has_rough:
-            box_pick_acc += (w_rough,)
-        box_pick_acc = jax.lax.fori_loop(0, n_box, box_pick, box_pick_acc,
-                                         unroll=_unroll(n_box))
-        (wr, wg, wb, w_mode, b_cx, b_cy, b_cz, b_hx, b_hy, b_hz
-         ) = box_pick_acc[:10]
-        if has_rough:
-            w_rough = box_pick_acc[10]
-
-        def tri_pick(p, acc):
-            wr, wg, wb, wm, gx, gy, gz = acc[:7]
-            m = pid == p + n_sph + n_box
-            out = (jnp.where(m, _row(tri_ref, 12 * r_pad, p), wr),
-                   jnp.where(m, _row(tri_ref, 13 * r_pad, p), wg),
-                   jnp.where(m, _row(tri_ref, 14 * r_pad, p), wb),
-                   jnp.where(m, _row(tri_ref, 15 * r_pad, p), wm),
-                   jnp.where(m, _row(tri_ref, 9 * r_pad, p), gx),
-                   jnp.where(m, _row(tri_ref, 10 * r_pad, p), gy),
-                   jnp.where(m, _row(tri_ref, 11 * r_pad, p), gz))
-            if has_rough:
-                out += (jnp.where(
-                    m, _row(tri_ref, rows_ix.t_rough * r_pad, p), acc[7]),)
-            return out
-
-        tri_pick_acc = (wr, wg, wb, w_mode, t_nx, t_ny, t_nz)
-        if has_rough:
-            tri_pick_acc += (w_rough,)
-        tri_pick_acc = jax.lax.fori_loop(0, n_tri, tri_pick, tri_pick_acc,
-                                         unroll=_unroll(n_tri))
-        (wr, wg, wb, w_mode, t_nx, t_ny, t_nz) = tri_pick_acc[:7]
-        if has_rough:
-            w_rough = tri_pick_acc[7]
-
-        # ---- winner normal, once per bounce --------------------------------
-        is_sph = (pid >= 0) & (pid < n_sph)
-        is_box = (pid >= n_sph) & (pid < n_sph + n_box)
-        is_tri = pid >= n_sph + n_box
-        t_fin = jnp.where(t_best < _INF, t_best, 0.0)
-        hx_ = ox + t_fin * dx
-        hy_ = oy + t_fin * dy
-        hz_ = oz + t_fin * dz
-        # sphere: (hit - c) / r, flipped against the incoming direction
-        nx = (hx_ - s_cx) * s_ir
-        ny = (hy_ - s_cy) * s_ir
-        nz = (hz_ - s_cz) * s_ir
-        if n_box:
-            # box: recompute the slab test for the single winner
-            tax = (b_cx - b_hx - ox) * ix
-            tbx = (b_cx + b_hx - ox) * ix
-            tay = (b_cy - b_hy - oy) * iy
-            tby = (b_cy + b_hy - oy) * iy
-            taz = (b_cz - b_hz - oz) * iz
-            tbz = (b_cz + b_hz - oz) * iz
-            t0x, t1x = jnp.minimum(tax, tbx), jnp.maximum(tax, tbx)
-            t0y, t1y = jnp.minimum(tay, tby), jnp.maximum(tay, tby)
-            t0z, t1z = jnp.minimum(taz, tbz), jnp.maximum(taz, tbz)
-            t_enter = jnp.maximum(jnp.maximum(t0x, t0y), t0z)
-            t_exit = jnp.minimum(jnp.minimum(t1x, t1y), t1z)
-            # winning slab axis -> face normal -sign(d_axis) e_axis with
-            # x > y > z tie order (ops/intersect.box_surface argmax/argmin)
-            # boolean logic only: Mosaic cannot select between i1 vectors
-            entering = t_enter >= 0.0
-            wx = ((entering & (t0x == t_enter))
-                  | (~entering & (t1x == t_exit)))
-            wy = ((entering & (t0y == t_enter))
-                  | (~entering & (t1y == t_exit))) & ~wx
-            wz = ~wx & ~wy
-            sx = jnp.where(dx < 0.0, 1.0, -1.0)
-            sy = jnp.where(dy < 0.0, 1.0, -1.0)
-            sz = jnp.where(dz < 0.0, 1.0, -1.0)
-            nx = jnp.where(is_box, jnp.where(wx, sx, 0.0), nx)
-            ny = jnp.where(is_box, jnp.where(wy, sy, 0.0), ny)
-            nz = jnp.where(is_box, jnp.where(wz, sz, 0.0), nz)
-        if n_tri:
-            nx = jnp.where(is_tri, t_nx, nx)
-            ny = jnp.where(is_tri, t_ny, ny)
-            nz = jnp.where(is_tri, t_nz, nz)
-        # flip toward the incoming ray (sphere inside view / tri winding);
-        # box normals already face against the ray by construction.
-        do_flip = is_sph | is_tri
-        flip = jnp.where(do_flip & (dx * nx + dy * ny + dz * nz > 0.0),
-                         -1.0, 1.0)
-        nx, ny, nz = nx * flip, ny * flip, nz * flip
-        # normalize: (hit - c) * inv_r inherits hit-t rounding amplified by
-        # 1/r; unnormalized normals drift reflected |d| (~1e-4 on small
-        # spheres), breaking the unit_d quadratic at grazing incidence
-        n_inv = 1.0 / jnp.sqrt(jnp.maximum(nx * nx + ny * ny + nz * nz,
-                                           1e-20))
-        nx, ny, nz = nx * n_inv, ny * n_inv, nz * n_inv
+        # ---- shading (ops/trace._bounce) ---------------------------------
         hit = alive & (pid >= 0)
-        # mode decode: 0 keep, 1 mirror continuation, 2 emissive,
-        # 3 transmission continuation (mutually exclusive by packing)
-        lit = hit & (w_mode > 1.5) & (w_mode < 2.5)
-        cont_m = hit & (w_mode > 0.5) & (w_mode < 1.5)
-        cont_t = hit & (w_mode > 2.5) if has_trans else jnp.zeros(shape, bool)
-        keep = hit & ~lit & ~cont_m & ~cont_t
         miss = alive & (pid < 0)
+        cr = jnp.where(hit, cr * rgb[0], cr)
+        cg = jnp.where(hit, cg * rgb[1], cg)
+        cb = jnp.where(hit, cb * rgb[2], cb)
+        path = jnp.where(hit, path + t_s, path)
+        is_light = hit & (mode == 2.0)
+        cont_m = hit & (mode == 1.0)
+        cont_t = (hit & (mode == 3.0)) if m.has_trans else None
 
-        col_r = jnp.where(hit, col_r * wr,
-                          jnp.where(miss, col_r * sky_r, col_r))
-        col_g = jnp.where(hit, col_g * wg,
-                          jnp.where(miss, col_g * sky_g, col_g))
-        col_b = jnp.where(hit, col_b * wb,
-                          jnp.where(miss, col_b * sky_b, col_b))
-        path = jnp.where(hit, path + t_best, path)
-        status = jnp.where(lit, _LIGHT,
-                           jnp.where(keep, _KEEP,
-                                     jnp.where(miss, _MISS, status)))
-
-        # mirror continuation: reflect + eps-advance (raytracer.ts:231-236);
-        # the pure reflection is kept for the TIR fallback before any
-        # roughness scatter is applied (refract's TIR branch reflects the
-        # UNscattered direction, ops/vecmath.refract / raytracer.ts:147-149)
-        d_dot_n = dx * nx + dy * ny + dz * nz
-        rdx = dx - 2.0 * d_dot_n * nx
-        rdy = dy - 2.0 * d_dot_n * ny
-        rdz = dz - 2.0 * d_dot_n * nz
-        if has_rough:
-            # same draw coordinates and formulas as the XLA wavefront path
-            # (ops/sampling counter hash) — parity at fused tolerance
+        dn = dx * nx + dy * ny + dz * nz
+        rdx = dx - 2.0 * dn * nx
+        rdy = dy - 2.0 * dn * ny
+        rdz = dz - 2.0 * dn * nz
+        if m.has_rough:
             sdx, sdy, sdz = sampling.scatter_direction_xyz(
-                seed, rid, b_idx, rdx, rdy, rdz, nx, ny, nz, w_rough)
+                seed, rid, b_idx, rdx, rdy, rdz, nx, ny, nz, rough, div=div)
         else:
             sdx, sdy, sdz = rdx, rdy, rdz
-
-        if has_trans:
-            # eps-advance along the OLD direction (raytracer.ts:240-241),
-            # then the entity_at_pos innermost-containment scan for the
-            # refraction target substance (ops/trace.substance_refr_at)
-            ax_ = hx_ + EPS_ADVANCE * dx
-            ay_ = hy_ + EPS_ADVANCE * dy
-            az_ = hz_ + EPS_ADVANCE * dz
-            a_dot_a = ax_ * ax_ + ay_ * ay_ + az_ * az_
-            inf_t = jnp.full(shape, _INF, jnp.float32)
-            any_in = jnp.zeros(shape, bool)
-
-            def sub_sph(p, acc):
-                vol_min, refr_sel, any_in = acc
-                cx = _row(sph_ref, 0, p)
-                cy = _row(sph_ref, s_pad, p)
-                cz = _row(sph_ref, 2 * s_pad, p)
-                ccmr = _row(sph_ref, 3 * s_pad, p)
-                # |a-c|^2 <= r^2  <=>  a.a - 2 a.c + (c.c - r^2) <= 0
-                q = a_dot_a - 2.0 * (ax_ * cx + ay_ * cy + az_ * cz) + ccmr
-                inside = q <= 0.0
-                vol = _row(sph_ref, rows_ix.s_vol * s_pad, p)
-                # strict < keeps the FIRST prim on volume ties, matching
-                # the XLA path's argmin-first semantics
-                u = inside & (vol < vol_min)
-                rf = _row(sph_ref, rows_ix.s_refr * s_pad, p)
-                return (jnp.where(u, vol, vol_min),
-                        jnp.where(u, rf, refr_sel),
-                        any_in | inside)
-
-            def sub_box(p, acc):
-                vol_min, refr_sel, any_in = acc
-                cx = _row(box_ref, 0, p)
-                cy = _row(box_ref, b_pad, p)
-                cz = _row(box_ref, 2 * b_pad, p)
-                hx = _row(box_ref, 3 * b_pad, p)
-                hy = _row(box_ref, 4 * b_pad, p)
-                hz = _row(box_ref, 5 * b_pad, p)
-                inside = ((jnp.abs(ax_ - cx) <= hx)
-                          & (jnp.abs(ay_ - cy) <= hy)
-                          & (jnp.abs(az_ - cz) <= hz))
-                vol = _row(box_ref, rows_ix.b_vol * b_pad, p)
-                u = inside & (vol < vol_min)
-                rf = _row(box_ref, rows_ix.b_refr * b_pad, p)
-                return (jnp.where(u, vol, vol_min),
-                        jnp.where(u, rf, refr_sel),
-                        any_in | inside)
-
-            acc = (inf_t, zero, any_in)
-            acc = jax.lax.fori_loop(0, n_sph, sub_sph, acc,
-                                    unroll=_unroll(n_sph))
-            acc = jax.lax.fori_loop(0, n_box, sub_box, acc,
-                                    unroll=_unroll(n_box))
-            _vol, refr_sel, any_in = acc
-            # innermost defined substance -> its index; undefined -> keep
-            # current, no refraction; none containing -> scene default
-            defined = refr_sel >= 0.0
-            target = jnp.where(any_in, jnp.where(defined, refr_sel, refr),
-                               jnp.broadcast_to(refr_def, shape))
-            do_refract = (~any_in) | defined
-            eta = refr / jnp.maximum(target, 1e-6)
-            # Snell + TIR (ops/vecmath.refract, term-for-term)
-            c1 = -(dx * nx + dy * ny + dz * nz)
-            s2 = eta * eta * (1.0 - c1 * c1)
-            inside_ = jnp.maximum(1.0 - s2, 0.0)
-            pos = inside_ > 0.0
-            c2 = jnp.sqrt(jnp.where(pos, inside_, 1.0)) * pos
-            k = eta * c1 - c2
+        new_o = [jnp.where(cont_m, q + EPS_ADVANCE * s, o_)
+                 for q, s, o_ in ((px, sdx, ox), (py, sdy, oy),
+                                  (pz, sdz, oz))]
+        new_d = [jnp.where(cont_m, s, v)
+                 for s, v in ((sdx, dx), (sdy, dy), (sdz, dz))]
+        if m.has_trans:
+            adv = (px + EPS_ADVANCE * dx, py + EPS_ADVANCE * dy,
+                   pz + EPS_ADVANCE * dz)
+            target, do_refract = _substance(adv, refr, refr_def, s_ref,
+                                            b_ref, m, shape)
+            eta = div(refr, jnp.maximum(target, 1e-6))
+            # ops/vecmath.refract, term for term
+            c1 = -dn
+            s2 = (eta * eta) * (1.0 - c1 * c1)
             tir = s2 > 1.0
-            fdx = jnp.where(tir, rdx, eta * dx + k * nx)
-            fdy = jnp.where(tir, rdy, eta * dy + k * ny)
-            fdz = jnp.where(tir, rdz, eta * dz + k * nz)
-            tdx = jnp.where(do_refract, fdx, dx)
-            tdy = jnp.where(do_refract, fdy, dy)
-            tdz = jnp.where(do_refract, fdz, dz)
-            new_refr = jnp.where(do_refract, target, refr)
-            ox = jnp.where(cont_t, ax_, ox)
-            oy = jnp.where(cont_t, ay_, oy)
-            oz = jnp.where(cont_t, az_, oz)
-            dx_t, dy_t, dz_t = tdx, tdy, tdz
-            refr = jnp.where(cont_t, new_refr, refr)
+            inside = jnp.maximum(1.0 - s2, 0.0)
+            pos = inside > 0.0
+            c2 = jnp.sqrt(jnp.where(pos, inside, 1.0)) * pos.astype(f32)
+            k = eta * c1 - c2
+            for i, (v, nv, rv, av) in enumerate(
+                    ((dx, nx, rdx, adv[0]), (dy, ny, rdy, adv[1]),
+                     (dz, nz, rdz, adv[2]))):
+                refracted = jnp.where(tir, rv, eta * v + k * nv)
+                trans = jnp.where(do_refract, refracted, v)
+                new_d[i] = jnp.where(cont_t, trans, new_d[i])
+                new_o[i] = jnp.where(cont_t, av, new_o[i])
+            refr = jnp.where(cont_t,
+                             jnp.where(do_refract, target, refr), refr)
+            cont = cont_m | cont_t
         else:
-            dx_t, dy_t, dz_t = dx, dy, dz
+            cont = cont_m
 
-        # hit point (hx_, hy_, hz_) was computed with the normals above
-        ox = jnp.where(cont_m, hx_ + EPS_ADVANCE * sdx, ox)
-        oy = jnp.where(cont_m, hy_ + EPS_ADVANCE * sdy, oy)
-        oz = jnp.where(cont_m, hz_ + EPS_ADVANCE * sdz, oz)
-        dx = jnp.where(cont_t, dx_t, jnp.where(cont_m, sdx, dx))
-        dy = jnp.where(cont_t, dy_t, jnp.where(cont_m, sdy, dy))
-        dz = jnp.where(cont_t, dz_t, jnp.where(cont_m, sdz, dz))
-        out = (ox, oy, oz, dx, dy, dz, col_r, col_g, col_b, path, status)
-        return out + ((refr,) if has_trans else ())
+        cr = jnp.where(miss, cr * sky[0], cr)
+        cg = jnp.where(miss, cg * sky[1], cg)
+        cb = jnp.where(miss, cb * sky[2], cb)
+        keep = hit & ~is_light & ~cont
+        status = jnp.where(is_light, _LIGHT, status)
+        status = jnp.where(keep, _KEEP, status)
+        status = jnp.where(miss, _MISS, status)
+        return (tuple(new_o), tuple(new_d), (cr, cg, cb), path, status,
+                refr)
 
-    state = (ox, oy, oz, dx, dy, dz, col_r, col_g, col_b, path, status)
-    if has_trans:
-        state = state + (refr,)
-    for _bounce in range(refmax):
-        if _bounce == 0:
-            # bounce 0 of a shared-origin wavefront only needs the spheres
-            # whose bounding cone test passed host-side (frustum culling);
-            # later bounces have divergent origins -> full scan.
-            state = _one_bounce(state, use_short, True, 0)
+    one = jnp.ones(shape, f32)
+    refr0 = (jnp.broadcast_to(f_ref[_F_REFR0], shape) if m.has_trans
+             else jnp.zeros(shape, f32))
+    state = (o, d, (one, one, one), jnp.zeros(shape, f32),
+             jnp.full(shape, _ALIVE, jnp.int32), refr0)
+    for b_idx in range(m.refmax):
+        if b_idx == 0:
+            state = bounce(state, b_idx)
         else:
-            # whole-tile early-out: spheres are localized in the image, so
-            # after bounce 0 many ray tiles have zero continuing rays — skip
-            # the entire candidate scan for those (the reference's per-ray
-            # termination check, raytracer.ts:168, at tile granularity).
-            any_alive = jnp.any(state[10] == _ALIVE)
+            # skip the whole bounce when no ray of the block is alive
+            any_alive = jnp.max((state[4] == _ALIVE).astype(jnp.int32)) > 0
             state = jax.lax.cond(
-                any_alive,
-                lambda s, b=_bounce: _one_bounce(s, False, False, b),
-                lambda s: s, state)
-    (ox, oy, oz, dx, dy, dz, col_r, col_g, col_b, path,
-     status) = state[:11]
+                any_alive, lambda s, b=b_idx: bounce(s, b), lambda s: s,
+                state)
+    _o, _d, (cr, cg, cb), path, status, _refr = state
 
-    # refmax exhaustion -> black (raytracer.ts:256-263)
+    # refmax exhaustion -> black; inverse-square law for light hits
     exhausted = status == _ALIVE
-    col_r = jnp.where(exhausted, 0.0, col_r)
-    col_g = jnp.where(exhausted, 0.0, col_g)
-    col_b = jnp.where(exhausted, 0.0, col_b)
     status = jnp.where(exhausted, _EXHAUST, status)
-
-    # ISL for light hits (raytracer.ts:273-275)
-    isl = 1.0 / (JS_EPSILON + (path * atten) ** 2)
+    pa = path * m.atten
+    isl = div(1.0, JS_EPSILON + pa * pa)
     lit = status == _LIGHT
-    col_r = jnp.where(lit, col_r * isl, col_r)
-    col_g = jnp.where(lit, col_g * isl, col_g)
-    col_b = jnp.where(lit, col_b * isl, col_b)
-
-    cr_ref[:, :] = col_r
-    cg_ref[:, :] = col_g
-    cb_ref[:, :] = col_b
-    st_ref[:, :] = status
+    out = []
+    for ch in (cr, cg, cb):
+        ch = jnp.where(exhausted, 0.0, ch)
+        out.append(jnp.where(lit, ch * isl, ch))
+    return (*out, status)
 
 
-def _trace_kernel(ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                  rid_ref, sph_ref, box_ref, tri_ref, sky_ref, sid_ref,
-                  aux_i_ref, aux_f_ref,
-                  cr_ref, cg_ref, cb_ref, st_ref,
-                  *, n_sph, n_box, n_tri, s_pad, b_pad, r_pad,
-                  refmax, atten, use_short, ext):
-    """Wavefront entry: per-ray origins/directions from HBM columns.
-
-    ``rid_ref`` carries the caller's global ray ids (the RNG stream
-    coordinate); ``aux_i_ref``/``aux_f_ref`` are SMEM scalar rows
-    ([seed] / [refr0, refr_def]) the extended class needs (_trace_core).
-    """
-    has_rough, has_trans = ext[0], ext[1]
-    seed = aux_i_ref[0, 0].astype(jnp.uint32) if has_rough else None
-    if has_trans:
-        refr0 = aux_f_ref[0, 0]
-        refr_def = aux_f_ref[0, 1]
-    else:
-        refr0 = refr_def = None
-    _trace_core(ox_ref[:], oy_ref[:], oz_ref[:],
-                dx_ref[:], dy_ref[:], dz_ref[:],
-                sph_ref, box_ref, tri_ref, sky_ref, sid_ref,
-                cr_ref, cg_ref, cb_ref, st_ref,
-                n_sph=n_sph, n_box=n_box, n_tri=n_tri,
-                s_pad=s_pad, b_pad=b_pad, r_pad=r_pad,
-                refmax=refmax, atten=atten, use_short=use_short,
-                unit_d=False, has_c0=False,
-                ext=ext, rid=rid_ref[:] if has_rough else None,
-                seed=seed, refr0=refr0, refr_def=refr_def)
+def _slab(ox, oy, oz, ix, iy, iz, lx, ly, lz, hx, hy, hz):
+    """Liang-Barsky slabs (ops/intersect._slab) -> (t_enter, t_exit,
+    first-argmax masks of the entry axis, first-argmin masks of the exit
+    axis)."""
+    tax, tbx = (lx - ox) * ix, (hx - ox) * ix
+    tay, tby = (ly - oy) * iy, (hy - oy) * iy
+    taz, tbz = (lz - oz) * iz, (hz - oz) * iz
+    t0x, t1x = jnp.minimum(tax, tbx), jnp.maximum(tax, tbx)
+    t0y, t1y = jnp.minimum(tay, tby), jnp.maximum(tay, tby)
+    t0z, t1z = jnp.minimum(taz, tbz), jnp.maximum(taz, tbz)
+    t_in = jnp.maximum(jnp.maximum(t0x, t0y), t0z)
+    t_out = jnp.minimum(jnp.minimum(t1x, t1y), t1z)
+    ex = t0x == t_in
+    ey = ~ex & (t0y == t_in)
+    xx = t1x == t_out
+    xy = ~xx & (t1y == t_out)
+    return t_in, t_out, (ex, ey, ~(ex | ey)), (xx, xy, ~(xx | xy))
 
 
-# SMEM camera layout for the frame kernel (all f32):
-# 0-2 pos, 3-5 front, 6-8 left, 9-11 up,
-# 12 step_h (fov_h/w), 13 step_v (fov_v/h), 14 off_h (w//2), 15 off_v (h//2),
-# 16 refr0 (camera-substance refractive index), 17 default_refr
-_CAM_SLOTS = 18
+def _moller_trumbore(t_ref, base, ox, oy, oz, dx, dy, dz, div):
+    """ops/intersect.tri_hit_t for one triangle row -> (t, valid)."""
+    v0x, v0y, v0z = _ld3(t_ref, base, T_V0)
+    e1x, e1y, e1z = _ld3(t_ref, base, T_E1)
+    e2x, e2y, e2z = _ld3(t_ref, base, T_E2)
+    qx_ = dy * e2z - dz * e2y
+    qy_ = dz * e2x - dx * e2z
+    qz_ = dx * e2y - dy * e2x
+    det = e1x * qx_ + e1y * qy_ + e1z * qz_
+    inv_det = div(1.0, jnp.where(jnp.abs(det) < MT_EPS, MT_EPS, det))
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    u = (sx * qx_ + sy * qy_ + sz * qz_) * inv_det
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    ok = ((jnp.abs(det) >= MT_EPS) & (u >= 0.0) & (v >= 0.0)
+          & (u + v <= 1.0) & (t >= 0.0))
+    return t, ok
 
-#: sphere count at which the per-tile shortlist engages in the frame kernel
-#: (below it the fully-unrolled static scan is cheaper than a dynamic loop)
-FRAME_SHORT_MIN = int(os.environ.get("RT_FRAME_SHORT_MIN", "12"))
+
+def _substance(pt, refr, refr_def, s_ref, b_ref, m: Meta, shape):
+    """ops/trace.substance_refr_at (dense): innermost containing entity's
+    substance -> (target refractive index, do_refract)."""
+    ax, ay, az = pt
+
+    def upd(acc, inside, vol, rf):
+        vol_min, sel, any_in = acc
+        u = inside & (vol < vol_min)
+        return (jnp.where(u, vol, vol_min), jnp.where(u, rf, sel),
+                any_in | inside)
+
+    def sph(p, acc):
+        base = p * S_COLS
+        cx, cy, cz = _ld3(s_ref, base, S_C)
+        ex, ey, ez = ax - cx, ay - cy, az - cz
+        inside = (ex * ex + ey * ey + ez * ez) <= s_ref[base + S_R2]
+        return upd(acc, inside, s_ref[base + S_VOL], s_ref[base + S_REFR])
+
+    def box(p, acc):
+        base = p * B_COLS
+        cx, cy, cz = _ld3(b_ref, base, B_C)
+        hx, hy, hz = _ld3(b_ref, base, B_H)
+        inside = ((jnp.abs(ax - cx) <= hx) & (jnp.abs(ay - cy) <= hy)
+                  & (jnp.abs(az - cz) <= hz))
+        return upd(acc, inside, b_ref[base + B_VOL], b_ref[base + B_REFR])
+
+    acc = (jnp.full(shape, _INF, jnp.float32),
+           jnp.full(shape, -1.0, jnp.float32), jnp.zeros(shape, bool))
+    if m.n_sph:
+        acc = jax.lax.fori_loop(0, m.n_sph, sph, acc)
+    if m.n_box:
+        acc = jax.lax.fori_loop(0, m.n_box, box, acc)
+    _vol, sel, any_in = acc
+    defined = sel >= 0.0
+    target = jnp.where(any_in, jnp.where(defined, sel, refr), refr_def)
+    return target, (~any_in) | defined
 
 
-def _trace_frame_kernel(cam_ref, sph_ref, box_ref, tri_ref, sky_ref, tab_ref,
-                        aux_ref,
-                        cr_ref, cg_ref, cb_ref, st_ref,
-                        *, n_sph, n_box, n_tri, s_pad, b_pad, r_pad,
-                        refmax, atten, dyn_short, ext):
-    """Frame entry: rays generated in-register from the camera pose.
+def _wavefront_kernel(ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
+                      rid_ref, f_ref, i_ref, s_ref, b_ref, t_ref,
+                      r_out, g_out, b_out, st_out, *, meta: Meta):
+    rid = rid_ref[...] if meta.has_rough else None
+    outs = _trace((ox_ref[...], oy_ref[...], oz_ref[...]),
+                  (dx_ref[...], dy_ref[...], dz_ref[...]), rid,
+                  f_ref, i_ref, s_ref, b_ref, t_ref, meta)
+    for ref, v in zip((r_out, g_out, b_out, st_out), outs):
+        ref[...] = v
 
-    The grid is 2-D over (row-tile, column-tile) of the image: program
-    (by, bx) renders pixels y in [by*FUSE_SUB, ...), x in [bx*128, ...).
-    2-D tiles (vs. consecutive-index strips) give each program a narrow
-    direction cone, which is what makes the per-tile sphere shortlist
-    (``dyn_short``) and the bounce>=1 dead-tile skip effective. The
-    direction is the closed-form equiangular map of
-    models/camera.pixel_rays, term-for-term.
-    """
-    by = pl.program_id(0)
-    bx = pl.program_id(1)
-    sub = jax.lax.broadcasted_iota(jnp.int32, (FUSE_SUB, SP_LANE), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (FUSE_SUB, SP_LANE), 1)
-    xi = bx * SP_LANE + lane
-    yi = by * FUSE_SUB + sub
-    x = xi.astype(jnp.float32)
-    y = yi.astype(jnp.float32)
-    th_h = (x - cam_ref[0, 14]) * cam_ref[0, 12]
-    th_v = (y - cam_ref[0, 15]) * cam_ref[0, 13]
-    ch, sh = jnp.cos(th_h), jnp.sin(th_h)
-    cv, sv = jnp.cos(th_v), jnp.sin(th_v)
+
+def _frame_kernel(ch_ref, sh_ref, cv_ref, sv_ref, f_ref, i_ref, s_ref,
+                  b_ref, t_ref, r_out, g_out, b_out, st_out, *, meta: Meta,
+                  w: int, n_pix: int):
+    """Rays from the pixel index: k = y * w + x, direction as in
+    models/camera.pixel_rays from the (cos, sin) angle tables."""
+    k = pl.program_id(0) * BLOCK + jnp.arange(BLOCK, dtype=jnp.int32)
+    kc = jnp.minimum(k, n_pix - 1)          # padded lanes repeat a pixel
+    x = jax.lax.rem(kc, w)
+    y = jax.lax.div(kc, w)
+    ch, sh = ch_ref[x], sh_ref[x]
+    cv, sv = cv_ref[y], sv_ref[y]
     a1, a2 = ch * cv, ch * sv
-    dx = a1 * cam_ref[0, 3] + a2 * cam_ref[0, 9] + sh * cam_ref[0, 6]
-    dy = a1 * cam_ref[0, 4] + a2 * cam_ref[0, 10] + sh * cam_ref[0, 7]
-    dz = a1 * cam_ref[0, 5] + a2 * cam_ref[0, 11] + sh * cam_ref[0, 8]
-    has_rough, has_trans = ext[0], ext[1]
-    if has_rough:
-        # RNG stream coordinate = (pixel id) * spp + sample, identical to
-        # render.render_rays' sid derivation for the XLA path
-        seed = aux_ref[0, 0].astype(jnp.uint32)
-        rid = (yi * aux_ref[0, 1] + xi) * aux_ref[0, 2] + aux_ref[0, 3]
-    else:
-        seed = rid = None
-    _trace_core(cam_ref[0, 0], cam_ref[0, 1], cam_ref[0, 2], dx, dy, dz,
-                sph_ref, box_ref, tri_ref, sky_ref, None,
-                cr_ref, cg_ref, cb_ref, st_ref,
-                n_sph=n_sph, n_box=n_box, n_tri=n_tri,
-                s_pad=s_pad, b_pad=b_pad, r_pad=r_pad,
-                refmax=refmax, atten=atten, use_short=False,
-                unit_d=True, has_c0=True,
-                tab_ref=tab_ref, dyn_short=dyn_short,
-                tab_row=by * pl.num_programs(1) + bx,
-                ext=ext, rid=rid, seed=seed,
-                refr0=cam_ref[0, 16] if has_trans else None,
-                refr_def=cam_ref[0, 17] if has_trans else None)
+    fr, lf, up = (_ld3(f_ref, 0, _F_FRONT), _ld3(f_ref, 0, _F_LEFT),
+                  _ld3(f_ref, 0, _F_UP))
+    d = tuple(a1 * fr[i] + a2 * up[i] + sh * lf[i] for i in range(3))
+    rid = (kc * i_ref[_I_SPP] + i_ref[_I_SAMPLE]) if meta.has_rough else None
+    outs = _trace(_ld3(f_ref, 0, _F_POS), d, rid, f_ref, i_ref, s_ref,
+                  b_ref, t_ref, meta)
+    for ref, v in zip((r_out, g_out, b_out, st_out), outs):
+        ref[...] = v
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("meta", "refmax", "atten", "use_short",
-                                    "ext", "interpret"))
-def _trace_call(cols, rid, sph, box, tri, sky, sid, aux_i, aux_f, meta,
-                refmax, atten, use_short, ext, interpret=False):
-    n_sph, n_box, n_tri, s_pad, b_pad, r_pad = meta
-    rows = cols[0].shape[0]
-    grid = (rows // FUSE_SUB,)
-    kern = functools.partial(_trace_kernel, n_sph=n_sph, n_box=n_box,
-                             n_tri=n_tri, s_pad=s_pad, b_pad=b_pad,
-                             r_pad=r_pad, refmax=refmax, atten=atten,
-                             use_short=use_short, ext=ext)
-    ray_spec = pl.BlockSpec((FUSE_SUB, SP_LANE), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-    full = lambda arr: pl.BlockSpec(arr.shape, lambda i: (0, 0),
-                                    memory_space=pltpu.VMEM)
-    # SMEM blocks must match full array dims; programs index rows by
-    # pl.program_id instead of a blocked index_map
-    smem = lambda arr: pl.BlockSpec(arr.shape, lambda i: (0, 0),
-                                    memory_space=pltpu.SMEM)
+def _call(kernel, n_pad, args, n_blocked, interpret):
+    ray = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    anywhere = pl.BlockSpec(memory_space=pl.ANY)
     return pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[ray_spec] * 7 + [full(sph), full(box), full(tri),
-                                   full(sky), smem(sid), smem(aux_i),
-                                   smem(aux_f)],
-        out_specs=[ray_spec, ray_spec, ray_spec, ray_spec],
-        out_shape=[jax.ShapeDtypeStruct((rows, SP_LANE), jnp.float32)] * 3
-        + [jax.ShapeDtypeStruct((rows, SP_LANE), jnp.int32)],
+        kernel,
+        grid=(n_pad // BLOCK,),
+        in_specs=[ray] * n_blocked + [anywhere] * (len(args) - n_blocked),
+        out_specs=[ray] * 4,
+        out_shape=[jax.ShapeDtypeStruct((n_pad,), jnp.float32)] * 3
+        + [jax.ShapeDtypeStruct((n_pad,), jnp.int32)],
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
         interpret=interpret,
-    )(*cols, rid, sph, box, tri, sky, sid, aux_i, aux_f)
+        name="trace_fused",
+    )(*args)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("meta", "refmax", "atten", "nby", "nbx",
-                                    "dyn_short", "ext", "interpret"))
-def _trace_frame_call(cam, sph, box, tri, sky, tab, aux, meta, refmax, atten,
-                      nby, nbx, dyn_short, ext, interpret=False):
-    n_sph, n_box, n_tri, s_pad, b_pad, r_pad = meta
-    kern = functools.partial(_trace_frame_kernel, n_sph=n_sph, n_box=n_box,
-                             n_tri=n_tri, s_pad=s_pad, b_pad=b_pad,
-                             r_pad=r_pad, refmax=refmax, atten=atten,
-                             dyn_short=dyn_short, ext=ext)
-    tile_spec = pl.BlockSpec((FUSE_SUB, SP_LANE), lambda i, j: (i, j),
-                             memory_space=pltpu.VMEM)
-    full = lambda arr: pl.BlockSpec(arr.shape, lambda i, j: (0, 0),
-                                    memory_space=pltpu.VMEM)
-    cam_spec = pl.BlockSpec(cam.shape, lambda i, j: (0, 0),
-                            memory_space=pltpu.SMEM)
-    # per-tile shortlist rows (row-major over (by, bx)): the WHOLE table as
-    # one SMEM block — TPU lowering rejects (1, W) row blocks (sublane dim
-    # must be a multiple of 8 or full), so each program scalar-indexes its
-    # own row instead
-    tab_spec = pl.BlockSpec(tab.shape, lambda i, j: (0, 0),
-                            memory_space=pltpu.SMEM)
-    aux_spec = pl.BlockSpec(aux.shape, lambda i, j: (0, 0),
-                            memory_space=pltpu.SMEM)
-    h_pad, w_pad = nby * FUSE_SUB, nbx * SP_LANE
-    return pl.pallas_call(
-        kern,
-        grid=(nby, nbx),
-        in_specs=[cam_spec, full(sph), full(box), full(tri), full(sky),
-                  tab_spec, aux_spec],
-        out_specs=[tile_spec, tile_spec, tile_spec, tile_spec],
-        out_shape=[jax.ShapeDtypeStruct((h_pad, w_pad), jnp.float32)] * 3
-        + [jax.ShapeDtypeStruct((h_pad, w_pad), jnp.int32)],
-        interpret=interpret,
-    )(cam, sph, box, tri, sky, tab, aux)
+@functools.partial(jax.jit, static_argnames=("meta", "interpret"))
+def _wavefront_call(cols, rid, fpar, ipar, sph, box, tri, meta, interpret):
+    kern = functools.partial(_wavefront_kernel, meta=meta)
+    return _call(kern, rid.shape[0], (*cols, rid, fpar, ipar, sph, box, tri),
+                 7, interpret)
 
 
-#: sphere count at which bounce-0 frustum shortlists engage. Measured on a
-#: v5e: at <=50 spheres the per-frame XLA cone build + dynamic-index reads
-#: cost more than the culled candidates save (4.50 vs 3.85 ms sustained), so
-#: the default keeps the fully-unrolled scan; set RT_SHORTLIST_MIN to opt in
-#: for sphere-heavy scenes.
-SHORTLIST_MIN_SPHERES = int(os.environ.get("RT_SHORTLIST_MIN", "4096"))
+@functools.partial(jax.jit, static_argnames=("meta", "w", "n_pix",
+                                             "interpret"))
+def _frame_call(tabs, fpar, ipar, sph, box, tri, meta, w, n_pix, interpret):
+    kern = functools.partial(_frame_kernel, meta=meta, w=w, n_pix=n_pix)
+    n_pad = -(-n_pix // BLOCK) * BLOCK
+    return _call(kern, n_pad, (*tabs, fpar, ipar, sph, box, tri), 0,
+                 interpret)
 
 
-def _sphere_shortlists(org: Array, dir: Array, centers: Array, radii: Array,
-                       nblk: int, s_pad: int) -> Tuple[Array, Array]:
-    """Conservative per-ray-block sphere include masks, bit-packed ->
-    (words [nblk, ceil(s_pad/32)] int32, counts [nblk, 1] int32).
+# ---------------------------------------------------------------------------
+# host-side packing
+# ---------------------------------------------------------------------------
 
-    Each grid program traces a block of consecutive rays; bound the block by
-    a direction cone (axis = mean dir, half-angle theta from the worst ray)
-    around an origin ball (center o0, radius ro), then keep sphere ``s`` iff
-    the ball-inflated sphere intersects the cone:
-
-        dist <= r + ro                    (origin ball inside the sphere), or
-        cos(beta) >= cos(alpha + theta)   (angular overlap test)
-
-    with sin(alpha) = (r+ro)/dist, beta = angle(center - o0, axis). Blocks
-    whose direction spread is too wide for the cone identity (cos theta
-    small) conservatively keep every sphere. This is exact culling — a
-    rejected sphere provably cannot be hit by any ray of the block — so the
-    fused kernel stays bit-identical to the full scan.
-    """
-    dn = dir / jnp.maximum(
-        jnp.linalg.norm(dir, axis=-1, keepdims=True), 1e-20)
-    db = dn.reshape(nblk, -1, 3)
-    ob = org.reshape(nblk, -1, 3)
-    axis = jnp.mean(db, axis=1)
-    axis = axis / jnp.maximum(
-        jnp.linalg.norm(axis, axis=-1, keepdims=True), 1e-20)
-    cos_t = jnp.min(jnp.einsum("brk,bk->br", db, axis,
-                               precision=jax.lax.Precision.HIGHEST), axis=1)
-    cos_t = jnp.clip(cos_t, -1.0, 1.0)
-    o0 = jnp.mean(ob, axis=1)                                    # [nblk, 3]
-    ro = jnp.max(jnp.linalg.norm(ob - o0[:, None], axis=-1), axis=1)
-    v = centers[None, :, :] - o0[:, None, :]                     # [nblk, S, 3]
-    dist = jnp.linalg.norm(v, axis=-1)
-    rr = radii[None, :] + ro[:, None]
-    inside = dist <= rr * (1.0 + 1e-5) + 1e-7
-    sin_a = jnp.clip(rr / jnp.maximum(dist, 1e-20), 0.0, 1.0)
-    cos_a = jnp.sqrt(jnp.maximum(1.0 - sin_a * sin_a, 0.0))
-    cos_b = jnp.einsum("bsk,bk->bs", v, axis,
-                       precision=jax.lax.Precision.HIGHEST
-                       ) / jnp.maximum(dist, 1e-20)
-    sin_t = jnp.sqrt(jnp.maximum(1.0 - cos_t * cos_t, 0.0))
-    cos_at = cos_a * cos_t[:, None] - sin_a * sin_t[:, None]
-    include = inside | (cos_b >= cos_at - 1e-5)
-    # wide direction spread: cone test unreliable -> keep all
-    include = include | (cos_t[:, None] < 0.25)
-    counts = jnp.sum(include, axis=1).astype(jnp.int32)[:, None]
-    # bit-pack: word w of block b holds spheres 32w..32w+31
-    n_words = -(-s_pad // 32)
-    inc = jnp.zeros((nblk, n_words * 32), bool)
-    inc = inc.at[:, : include.shape[1]].set(include)
-    bits = inc.reshape(nblk, n_words, 32).astype(jnp.int32)
-    words = jnp.sum(bits << jnp.arange(32, dtype=jnp.int32), axis=-1,
-                    dtype=jnp.int32)
-    return words, counts
-
-
-def _pack_prims(scene: Scene, cam_pos: Array | None = None):
-    """Lane-replicated primitive tables -> (sph, box, tri, sky, meta, ext).
-
-    When ``cam_pos`` is given the sphere table gets a 10th row block (index
-    9) with the bounce-0 quadratic constant c0 = o.o - 2 o.c + (c.c - r^2)
-    folded in (the frame kernel's ``has_c0`` path).
-
-    Extended-class rows are APPENDED after the base layout so the
-    restricted-class row indices never move: per-class material roughness
-    (``has_rough``), and for transmission the per-prim substance refractive
-    index (-1.0 = undefined substance, raytracer.ts:243-248) plus the
-    enclosed volume for the innermost-containment rule (spheres and boxes
-    only — triangles have no interior). ``ext`` is the static
-    ``(has_rough, has_trans, ExtRows)`` descriptor for ``_trace_core``.
-    """
-    def pad8(x):
-        return -(-max(x, 1) // 8) * 8
-
-    s_pad, b_pad, r_pad = (pad8(scene.n_spheres), pad8(scene.n_boxes),
-                           pad8(scene.n_tris))
-
-    # per-prim shading attributes in global prim order; response mode packs
-    # the emissive/continuation flags into one row (2 = light, 1 = mirror
-    # REFLECTION continuation, 3 = transmission continuation, 0 = keep —
-    # mutually exclusive: light wins, and a material has ONE response type)
-    prim_rgb = scene.textures.solid_rgb[scene.prim_texture]      # [P, 3]
+def _pack_prims(scene: Scene):
+    """Flat per-class tables (column layouts above) from the scene."""
+    f32 = jnp.float32
     mat = scene.materials
-    not_light = mat.light[scene.prim_material] == False  # noqa: E712
-    m_light = mat.light[scene.prim_material].astype(jnp.float32)
-    m_cont = (mat.mirror[scene.prim_material]
-              & (mat.response[scene.prim_material]
-                 == int(ResponseType.REFLECTION))
-              & not_light).astype(jnp.float32)
-    m_trans = ((mat.response[scene.prim_material]
-                == int(ResponseType.TRANSMISSION))
-               & not_light).astype(jnp.float32)
-    m_mode = 2.0 * m_light + m_cont
-    if scene.has_transmission:
-        m_mode = m_mode + 3.0 * m_trans
+    pm = scene.prim_material
+    light = mat.light[pm]
+    response = mat.response[pm]
+    mode = jnp.where(
+        light, 2.0,
+        jnp.where(mat.mirror[pm] & (response == int(ResponseType.REFLECTION)),
+                  1.0,
+                  jnp.where(response == int(ResponseType.TRANSMISSION)
+                            & scene.has_transmission, 3.0, 0.0))).astype(f32)
+    rgb = scene.textures.solid_rgb[scene.prim_texture].astype(f32)
+    rough = mat.roughness[pm].astype(f32)
+    sub = scene.prim_substance
+    sref = jnp.where(
+        sub >= 0, scene.sub_refr[jnp.clip(sub, 0, scene.sub_refr.shape[0] - 1)],
+        -1.0).astype(f32)
+    vol = prim_volumes(scene).astype(f32)
+    s_end, b_end = scene.n_spheres, scene.n_spheres + scene.n_boxes
 
-    def attr_slice(lo, hi):
-        return (prim_rgb[lo:hi, 0], prim_rgb[lo:hi, 1], prim_rgb[lo:hi, 2],
-                m_mode[lo:hi])
+    def attrs(lo, hi):
+        return [rgb[lo:hi], mode[lo:hi, None], rough[lo:hi, None]]
 
-    s_end = scene.n_spheres
-    b_end = s_end + scene.n_boxes
+    def flat(cols, n):
+        if n == 0:
+            return jnp.zeros((1,), f32)
+        return jnp.concatenate([c.astype(f32) for c in cols], axis=1).reshape(-1)
 
-    c_dot_c = jnp.sum(scene.sphere_center ** 2, axis=-1)
-    ccmr = c_dot_c - scene.sphere_radius ** 2
-    inv_r = 1.0 / jnp.maximum(scene.sphere_radius, 1e-20)
-    sph_cols = [scene.sphere_center[:, 0], scene.sphere_center[:, 1],
-                scene.sphere_center[:, 2], ccmr, inv_r, *attr_slice(0, s_end)]
-    if cam_pos is not None:
-        o = cam_pos
-        o_dot_o = o[0] * o[0] + o[1] * o[1] + o[2] * o[2]
-        c0 = o_dot_o - 2.0 * (scene.sphere_center[:, 0] * o[0]
-                              + scene.sphere_center[:, 1] * o[1]
-                              + scene.sphere_center[:, 2] * o[2]) + ccmr
-        sph_cols.append(c0)
-    box_cols = [scene.box_center[:, 0], scene.box_center[:, 1],
-                scene.box_center[:, 2], scene.box_half[:, 0],
-                scene.box_half[:, 1], scene.box_half[:, 2],
-                *attr_slice(s_end, b_end)]
+    r = scene.sphere_radius
+    sph = flat([scene.sphere_center, r[:, None], (r ** 2)[:, None],
+                *attrs(0, s_end), sref[:s_end, None], vol[:s_end, None]],
+               s_end)
+    c, h = scene.box_center, scene.box_half
+    box = flat([c - h, c + h, c, h, *attrs(s_end, b_end),
+                sref[s_end:b_end, None], vol[s_end:b_end, None]],
+               scene.n_boxes)
     e1 = scene.tri_v1 - scene.tri_v0
     e2 = scene.tri_v2 - scene.tri_v0
-    gn = jnp.cross(e1, e2)
-    gn = gn / jnp.maximum(jnp.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
-    tri_cols = [scene.tri_v0[:, 0], scene.tri_v0[:, 1], scene.tri_v0[:, 2],
-                scene.tri_v1[:, 0], scene.tri_v1[:, 1], scene.tri_v1[:, 2],
-                scene.tri_v2[:, 0], scene.tri_v2[:, 1], scene.tri_v2[:, 2],
-                gn[:, 0], gn[:, 1], gn[:, 2],
-                *attr_slice(b_end, scene.n_prims)]
+    gn = normalize(jnp.cross(e1, e2), eps=1e-20)      # as tri_surface
+    tri = flat([scene.tri_v0, e1, e2, gn, *attrs(b_end, scene.n_prims)],
+               scene.n_tris)
+    return sph, box, tri
 
-    rows = {}
-    if scene.has_rough:
-        rough = mat.roughness[scene.prim_material]
-        rows["s_rough"] = len(sph_cols)
-        sph_cols.append(rough[0:s_end])
-        rows["b_rough"] = len(box_cols)
-        box_cols.append(rough[s_end:b_end])
-        rows["t_rough"] = len(tri_cols)
-        tri_cols.append(rough[b_end:scene.n_prims])
-    if scene.has_transmission:
-        sub_id = scene.prim_substance
-        sub_refr = jnp.where(
-            sub_id >= 0,
-            scene.sub_refr[jnp.clip(sub_id, 0, scene.sub_refr.shape[0] - 1)],
-            -1.0)
-        s_vol = (4.0 / 3.0) * jnp.pi * scene.sphere_radius ** 3
-        b_vol = jnp.prod(2.0 * scene.box_half, axis=-1)
-        rows["s_refr"] = len(sph_cols)
-        sph_cols.append(sub_refr[0:s_end])
-        rows["s_vol"] = len(sph_cols)
-        sph_cols.append(s_vol)
-        rows["b_refr"] = len(box_cols)
-        box_cols.append(sub_refr[s_end:b_end])
-        rows["b_vol"] = len(box_cols)
-        box_cols.append(b_vol)
 
-    sph = pack_replicated(sph_cols, s_pad)
-    box = pack_replicated(box_cols, b_pad)
-    tri = pack_replicated(tri_cols, r_pad)
-    sky_rgb = scene.textures.solid_rgb[scene.sky_tex]
-    sky = pack_replicated([sky_rgb[0:1], sky_rgb[1:2], sky_rgb[2:3]], 1)
-    meta = (scene.n_spheres, scene.n_boxes, scene.n_tris,
-            s_pad, b_pad, r_pad)
-    ext = (bool(scene.has_rough), bool(scene.has_transmission),
-           ExtRows(**rows))
-    return sph, box, tri, sky, meta, ext
+def _meta(scene: Scene, cfg: RenderConfig, interpret: bool) -> Meta:
+    return Meta(scene.n_spheres, scene.n_boxes, scene.n_tris,
+                int(cfg.refmax), float(cfg.distance_attenuation_factor),
+                bool(scene.has_rough), bool(scene.has_transmission),
+                not interpret)
+
+
+def _params(scene, key, start_refr, cam=None, spp=1, sample=0):
+    """(f32 params, i32 params) vectors of the kernel's scalar slots."""
+    sky = scene.textures.solid_rgb[scene.sky_tex].astype(jnp.float32)
+    refr0 = (jnp.asarray(start_refr, jnp.float32) if start_refr is not None
+             else scene.default_refr.astype(jnp.float32))
+    pose = (jnp.concatenate([cam.pos, cam.front, cam.left, cam.up])
+            if cam is not None else jnp.zeros((12,)))
+    fpar = jnp.concatenate([sky, refr0.reshape(1),
+                            scene.default_refr.reshape(1).astype(jnp.float32),
+                            pose.astype(jnp.float32)])
+    seed = (sampling.seed_from_key(
+        key if key is not None else jax.random.key(0)).astype(jnp.int32)
+        if scene.has_rough else jnp.int32(0))
+    ipar = jnp.stack([seed, jnp.int32(spp),
+                      jnp.asarray(sample, jnp.int32)])
+    return fpar, ipar
 
 
 def trace_rays_fused(scene: Scene, cfg: RenderConfig, org: Array, dir: Array,
                      key: Array | None = None, ray_id: Array | None = None,
-                     start_refr: Array | None = None,
-                     interpret: bool | None = None
-                     ) -> Tuple[Array, Array]:
-    """Fused trace -> (color [N, 3], status [N]).
+                     start_refr: Array | None = None):
+    """Fused trace of a ray wavefront -> (color [N, 3], status [N]).
 
-    ``key``/``ray_id`` seed the in-kernel counter RNG for rough scenes
-    (identical streams to the XLA path); ``start_refr`` is the camera
-    substance scalar for transmission scenes (defaults to the scene
-    default — callers should pass render.start_substance's result).
-
-    Caller must check :func:`supports`. Matches ops/trace.trace_rays colors
-    and statuses exactly for the restricted class.
+    ``key``/``ray_id`` seed the counter RNG of rough scenes (the same
+    streams as the XLA path); ``start_refr`` is the camera substance of
+    transmission scenes (default: the scene default). Callers check
+    :func:`supports`.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
+    interpret = use_interpreter()
     n = org.shape[0]
-    quant = FUSE_SUB * SP_LANE
-    n_pad = -(-n // quant) * quant
+    n_pad = -(-n // BLOCK) * BLOCK
     if ray_id is None:
         ray_id = jnp.arange(n, dtype=jnp.int32)
     if n_pad != n:
-        # edge-replicate (not constant-pad) so padded rays stay inside the
-        # per-block culling cones; their outputs are sliced off below
-        rep = (n_pad - n,)
+        # edge-replicate the tail; padded outputs are sliced off below
         org = jnp.concatenate(
-            [org, jnp.broadcast_to(org[-1], rep + (3,))], axis=0)
+            [org, jnp.broadcast_to(org[-1], (n_pad - n, 3))], axis=0)
         dir = jnp.concatenate(
-            [dir, jnp.broadcast_to(dir[-1], rep + (3,))], axis=0)
+            [dir, jnp.broadcast_to(dir[-1], (n_pad - n, 3))], axis=0)
         ray_id = jnp.concatenate(
-            [ray_id, jnp.broadcast_to(ray_id[-1], rep)], axis=0)
-    cols = _ray_cols(org, dir, n_pad)
-    rid = ray_id.reshape(-1, SP_LANE)
-
-    sph, box, tri, sky, meta, ext = _pack_prims(scene)
-    s_pad = meta[3]
-    seed = (sampling.seed_from_key(
-        key if key is not None else jax.random.key(0)).astype(jnp.int32)
-        if ext[0] else jnp.int32(0))
-    aux_i = jnp.broadcast_to(seed, (1, 8)).astype(jnp.int32)
-    refr0 = (jnp.asarray(start_refr, jnp.float32)
-             if start_refr is not None else scene.default_refr)
-    aux_f = jnp.stack([refr0, scene.default_refr,
-                       *([jnp.float32(0.0)] * 6)]).reshape(1, 8)
-
-    nblk = n_pad // quant
-    use_short = (scene.n_spheres >= SHORTLIST_MIN_SPHERES
-                 and not os.environ.get("RT_NO_SHORTLIST"))
-    if use_short:
-        sid, _counts = _sphere_shortlists(
-            org, dir, scene.sphere_center, scene.sphere_radius, nblk, s_pad)
-    else:
-        # dummy (never read in-kernel); keep it tiny — a [nblk, ...] zero
-        # table would eat SMEM for nothing at small FUSE_SUB
-        sid = jnp.zeros((1, 8), jnp.int32)
-    cr, cg, cb, st = _trace_call(
-        cols, rid, sph, box, tri, sky, sid, aux_i, aux_f, meta,
-        int(cfg.refmax), float(cfg.distance_attenuation_factor), use_short,
-        ext, interpret=interpret)
-    color = jnp.stack([cr.reshape(-1)[:n], cg.reshape(-1)[:n],
-                       cb.reshape(-1)[:n]], axis=-1)
-    return color, st.reshape(-1)[:n]
-
-
-def supports_frame(scene: Scene) -> bool:
-    """Frame-kernel eligibility: fused class, and the host-side frustum
-    shortlist (which needs materialized rays) not engaged."""
-    return (supports(scene)
-            and not (scene.n_spheres >= SHORTLIST_MIN_SPHERES
-                     and not os.environ.get("RT_NO_SHORTLIST"))
-            and not os.environ.get("RT_NO_FRAME_KERNEL"))
-
-
-def _tile_shortlists(cam, nby: int, nbx: int, centers: Array,
-                     radii: Array) -> Array:
-    """Per-tile compact sphere id lists -> i32 [nby*nbx, 1 + ceil(S/2)].
-
-    Row layout: word 0 = count, then ids ascending, two 16-bit ids per word
-    (low half first). Entirely analytic — no per-ray tensors: tile (by, bx)
-    covers th_h/th_v bands of one equiangular step per pixel, so every tile
-    direction is within theta = half_h + half_v of the tile-center direction
-    (each equiangular parameter step is a rotation by at most the step
-    angle, so angular distance <= |dth_h| + |dth_v|). The band is clamped to
-    the image's VALID pixel range: padding rays (x >= w or y >= h of a
-    partial edge tile) may consult a shortlist that excludes spheres they
-    would hit, but their outputs are sliced off by trace_frame_fused.
-    Sphere s is kept iff the cone from the camera position with half-angle
-    theta intersects it — exact culling: a rejected sphere cannot be hit by
-    any forward ray of the tile's valid pixels, so the frame winner is
-    unchanged.
-    """
-    step_h = cam.fov_h / cam.w
-    step_v = cam.fov_v / cam.h
-    x_lo = np.arange(nbx) * SP_LANE
-    x_hi = np.minimum(cam.w - 1, x_lo + SP_LANE - 1)
-    y_lo = np.arange(nby) * FUSE_SUB
-    y_hi = np.minimum(cam.h - 1, y_lo + FUSE_SUB - 1)
-    thc_h = jnp.asarray(((x_lo + x_hi) / 2 - (cam.w // 2)) * step_h,
-                        jnp.float32)                             # [nbx]
-    thc_v = jnp.asarray(((y_lo + y_hi) / 2 - (cam.h // 2)) * step_v,
-                        jnp.float32)                             # [nby]
-    ch, sh = jnp.cos(thc_h)[None, :], jnp.sin(thc_h)[None, :]   # [1, nbx]
-    cv, sv = jnp.cos(thc_v)[:, None], jnp.sin(thc_v)[:, None]   # [nby, 1]
-    axis = ((ch * cv)[..., None] * cam.front
-            + (ch * sv)[..., None] * cam.up
-            + jnp.broadcast_to(sh[..., None] * cam.left, (nby, nbx, 3)))
-    axis = axis.reshape(-1, 3)                                   # [B, 3]
-    theta = ((x_hi - x_lo)[None, :] / 2 * step_h
-             + (y_hi - y_lo)[:, None] / 2 * step_v + 1e-4)       # [nby, nbx]
-    cos_t = jnp.asarray(np.cos(theta).reshape(-1, 1), jnp.float32)
-    sin_t = jnp.asarray(np.sin(theta).reshape(-1, 1), jnp.float32)
-
-    v = centers[None, :, :] - cam.pos[None, None, :]             # [B, S, 3]
-    dist = jnp.linalg.norm(v, axis=-1)
-    inside = dist <= radii[None, :] * (1.0 + 1e-5) + 1e-7
-    sin_a = jnp.clip(radii[None, :] / jnp.maximum(dist, 1e-20), 0.0, 1.0)
-    cos_a = jnp.sqrt(jnp.maximum(1.0 - sin_a * sin_a, 0.0))
-    cos_b = jnp.einsum("bsk,bk->bs", v, axis,
-                       precision=jax.lax.Precision.HIGHEST
-                       ) / jnp.maximum(dist, 1e-20)
-    include = inside | (cos_b >= cos_a * cos_t - sin_a * sin_t - 1e-5)
-
-    s = centers.shape[0]
-    cnt = jnp.sum(include, axis=1).astype(jnp.int32)[:, None]    # [B, 1]
-    # ascending included ids first, then a sentinel tail (never read)
-    key = jnp.where(include, jnp.arange(s, dtype=jnp.int32)[None, :],
-                    jnp.int32(1 << 20))
-    ids = jnp.sort(key, axis=1) & 0xFFFF
-    if s % 2:
-        ids = jnp.concatenate(
-            [ids, jnp.zeros((ids.shape[0], 1), jnp.int32)], axis=1)
-    pairs = ids.reshape(ids.shape[0], -1, 2)
-    words = pairs[:, :, 0] | (pairs[:, :, 1] << 16)
-    return jnp.concatenate([cnt, words], axis=1)
+            [ray_id, jnp.broadcast_to(ray_id[-1], (n_pad - n,))], axis=0)
+    cols = tuple(v[:, i].astype(jnp.float32) for v in (org, dir)
+                 for i in range(3))
+    fpar, ipar = _params(scene, key, start_refr)
+    r, g, b, st = _wavefront_call(cols, ray_id.astype(jnp.int32), fpar, ipar,
+                                  *_pack_prims(scene),
+                                  meta=_meta(scene, cfg, interpret),
+                                  interpret=interpret)
+    return jnp.stack([r[:n], g[:n], b[:n]], axis=-1), st[:n]
 
 
 def trace_frame_fused(scene: Scene, cfg: RenderConfig, cam,
                       key: Array | None = None, sample: Array | int = 0,
-                      start_refr: Array | None = None,
-                      interpret: bool | None = None) -> Array:
-    """Whole-frame fused trace with in-kernel ray generation -> [h, w, 3].
+                      start_refr: Array | None = None) -> Array:
+    """Whole frame with in-kernel ray generation -> [h, w, 3] HDR.
 
-    Caller must check :func:`supports_frame`. Rays never exist in HBM: the
-    camera pose rides in as 18 SMEM scalars and each (row-tile, col-tile)
-    program derives its pixel directions from iota (models/camera.pixel_rays
-    closed form), consults its per-tile sphere shortlist for bounce 0, and
-    writes its FUSE_SUB x 128 pixel tile of the output image directly.
-    Matches the wavefront path to f32 ULP noise (unit-|d| specialization
-    changes the rounding of the sphere quadratic), not bitwise.
+    Pixel k = y * w + x traces the ray of ``pixel_rays(cam)[k]``; rough
+    scenes draw from stream ``k * spp + sample``, as render.render_rays
+    does. Callers check :func:`supports`.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    nbx = -(-cam.w // SP_LANE)
-    nby = -(-cam.h // FUSE_SUB)
-
-    sph, box, tri, sky, meta, ext = _pack_prims(scene, cam_pos=cam.pos)
-    refr0 = (jnp.asarray(start_refr, jnp.float32)
-             if start_refr is not None else scene.default_refr)
-    cam_arr = jnp.concatenate([
-        cam.pos.astype(jnp.float32),
-        cam.front.astype(jnp.float32),
-        cam.left.astype(jnp.float32),
-        cam.up.astype(jnp.float32),
-        jnp.array([cam.fov_h / cam.w, cam.fov_v / cam.h,
-                   float(cam.w // 2), float(cam.h // 2)], jnp.float32),
-        refr0.reshape(1), scene.default_refr.reshape(1),
-    ]).reshape(1, _CAM_SLOTS)
-    seed = (sampling.seed_from_key(
-        key if key is not None else jax.random.key(0)).astype(jnp.int32)
-        if ext[0] else jnp.int32(0))
-    aux = jnp.stack([seed, jnp.int32(cam.w), jnp.int32(cfg.spp),
-                     jnp.asarray(sample, jnp.int32),
-                     *([jnp.int32(0)] * 4)]).reshape(1, 8)
-    dyn_short = (scene.n_spheres >= FRAME_SHORT_MIN
-                 and not os.environ.get("RT_NO_FRAME_SHORT"))
-    if dyn_short:
-        tab = _tile_shortlists(cam, nby, nbx, scene.sphere_center,
-                               scene.sphere_radius)
-    else:
-        tab = jnp.zeros((nby * nbx, 2), jnp.int32)
-    cr, cg, cb, _st = _trace_frame_call(
-        cam_arr, sph, box, tri, sky, tab, aux, meta, int(cfg.refmax),
-        float(cfg.distance_attenuation_factor), nby, nbx, dyn_short,
-        ext, interpret=interpret)
-    img = jnp.stack([cr, cg, cb], axis=-1)
-    if img.shape[0] != cam.h or img.shape[1] != cam.w:
-        img = img[:cam.h, :cam.w]
-    return img
+    interpret = use_interpreter()
+    n_pix = cam.w * cam.h
+    fpar, ipar = _params(scene, key, start_refr, cam=cam, spp=cfg.spp,
+                         sample=sample)
+    r, g, b, _st = _frame_call(angle_tables(cam), fpar, ipar,
+                               *_pack_prims(scene),
+                               meta=_meta(scene, cfg, interpret), w=cam.w,
+                               n_pix=n_pix, interpret=interpret)
+    img = jnp.stack([r[:n_pix], g[:n_pix], b[:n_pix]], axis=-1)
+    return img.reshape(cam.h, cam.w, 3)

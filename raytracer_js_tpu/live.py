@@ -27,7 +27,7 @@ q / Ctrl-C quit (the browser tab close)
 
 The control logic is pure (``LiveState`` + :func:`apply_key` +
 :func:`tick`) so tests drive it without a tty; ``main`` owns the raw
-terminal. Works on any backend — on TPU keep the frame small (the default
+terminal. Works on any backend; keep the frame small (the default
 128x128 matches the reference demo canvas, dist/test.html:9).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Differentiable equiangular camera.
 
-TPU re-design of the reference FPS camera (/root/reference/src/view/camera.ts).
+Re-design of the reference FPS camera (reference src/view/camera.ts).
 The reference generates each pixel direction by *incrementally* rotating the
 orthonormal (front, left, up) triad one fixed angle step per pixel, marching
 center-out (camera.ts:207-250) — an inherently sequential construction. Here
@@ -30,14 +30,14 @@ optimizer loops.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree
 
 from ..ops import vecmath as vm
 
 Array = jnp.ndarray
 
 
-@struct.dataclass
+@pytree.dataclass
 class Camera:
     """Pose pytree. ``w``/``h``/fovs are static; pose arrays are traced/diff."""
 
@@ -45,10 +45,10 @@ class Camera:
     front: Array          # [3] unit
     left: Array           # [3] unit
     up: Array             # [3] unit
-    fov_h: float = struct.field(pytree_node=False, default=float(jnp.pi / 2))
-    fov_v: float = struct.field(pytree_node=False, default=float(jnp.pi / 2))
-    w: int = struct.field(pytree_node=False, default=128)
-    h: int = struct.field(pytree_node=False, default=128)
+    fov_h: float = pytree.field(pytree_node=False, default=float(jnp.pi / 2))
+    fov_v: float = pytree.field(pytree_node=False, default=float(jnp.pi / 2))
+    w: int = pytree.field(pytree_node=False, default=128)
+    h: int = pytree.field(pytree_node=False, default=128)
 
 
 def make_camera(pos, w: int, h: int, fov_h: float, fov_v: float,
@@ -123,18 +123,26 @@ def renormalized(cam: Camera) -> Camera:
     return cam.replace(front=f, left=l, up=u)
 
 
+def angle_tables(cam: Camera):
+    """(cos th_h [w], sin th_h [w], cos th_v [h], sin th_v [h]) of the
+    equiangular pixel grid — the per-column and per-row terms of
+    :func:`pixel_rays` (also read by the fused frame kernel)."""
+    x = jnp.arange(cam.w, dtype=jnp.float32)
+    y = jnp.arange(cam.h, dtype=jnp.float32)
+    th_h = (x - (cam.w // 2)) * (cam.fov_h / cam.w)
+    th_v = (y - (cam.h // 2)) * (cam.fov_v / cam.h)
+    return jnp.cos(th_h), jnp.sin(th_h), jnp.cos(th_v), jnp.sin(th_v)
+
+
 def pixel_rays(cam: Camera):
     """Closed-form per-pixel unit directions -> (org [h*w, 3], dir [h*w, 3]).
 
     Row y, column x ordering (row-major flatten), matching the exposure
     buffer's ``(y * w + x)`` indexing (exposure_buffer.ts:62-66).
     """
-    x = jnp.arange(cam.w, dtype=jnp.float32)
-    y = jnp.arange(cam.h, dtype=jnp.float32)
-    th_h = (x - (cam.w // 2)) * (cam.fov_h / cam.w)   # [w]
-    th_v = (y - (cam.h // 2)) * (cam.fov_v / cam.h)   # [h]
-    ch, sh = jnp.cos(th_h)[None, :], jnp.sin(th_h)[None, :]   # [1, w]
-    cv, sv = jnp.cos(th_v)[:, None], jnp.sin(th_v)[:, None]   # [h, 1]
+    ch, sh, cv, sv = angle_tables(cam)
+    ch, sh = ch[None, :], sh[None, :]                         # [1, w]
+    cv, sv = cv[:, None], sv[:, None]                         # [h, 1]
     d = (
         (ch * cv)[..., None] * cam.front
         + (ch * sv)[..., None] * cam.up

@@ -1,6 +1,6 @@
 """Material table.
 
-TPU re-design of the reference's virtual Material hierarchy
+Re-design of the reference's virtual Material hierarchy
 (/root/reference/src/material.ts:29-103, materials/material_solid.ts): the
 abstract methods ``response_type`` / ``is_mirror`` / ``is_light_source`` /
 ``roughness_index`` become integer/float *columns* indexed by material id, so
@@ -13,14 +13,14 @@ product is exactly what inverse-rendering gradients flow through.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree
 
 from ..config import ResponseType
 
 Array = jnp.ndarray
 
 
-@struct.dataclass
+@pytree.dataclass
 class MaterialTable:
     response: Array   # [M] i32: ResponseType
     light: Array      # [M] bool: is_light_source (material.ts:51-53)

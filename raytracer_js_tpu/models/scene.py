@@ -1,6 +1,6 @@
 """Structure-of-arrays scene model.
 
-TPU re-design of the reference's pointer-based scene graph: the abstract
+Re-design of the reference's pointer-based scene graph: the abstract
 ``Entity`` (/root/reference/src/entity.ts:38-101) with per-object material /
 texture / substance references and an octree back-pointer becomes flat
 parameter arrays — ``sphere_center [S,3]``, ``sphere_radius [S]``,
@@ -26,7 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import pytree
 
 from ..config import ResponseType, TextureKind
 from .materials import MaterialTable, make_material_table
@@ -45,7 +45,7 @@ REFR_WATER = 1.333
 REFR_GLASS = 1.5
 
 
-@struct.dataclass
+@pytree.dataclass
 class Scene:
     # primitives (differentiable leaves)
     sphere_center: Array   # [S, 3]
@@ -65,23 +65,23 @@ class Scene:
     sub_refr: Array        # [K] f32 refractive indices
     default_refr: Array    # [] f32: empty-space substance (raytracer.ts:38-39)
     # sky: equirect texture lookup on miss (sky/sky_sphere.ts:22-27)
-    sky_tex: int = struct.field(pytree_node=False, default=0)
+    sky_tex: int = pytree.field(pytree_node=False, default=0)
     #: cube-map sky: 6 texture ids (+x, -x, +y, -y, +z, -z faces) or None.
     #: The reference's SkyBox is an unimplemented stub (sky/sky_box.ts:17
     #: "not supported yet"); this completes it as capability beyond the
     #: reference — see ops/trace.sky_color for the face convention.
-    sky_box: tuple | None = struct.field(pytree_node=False, default=None)
+    sky_box: tuple | None = pytree.field(pytree_node=False, default=None)
     # static capability flags — let jit drop whole shading sub-graphs for
     # scenes that cannot exercise them (a transmission substance query is an
     # [N, P] containment matrix per bounce; the roughness scatter draws
     # per-ray threefry bits per bounce). Defaults are conservative.
-    has_transmission: bool = struct.field(pytree_node=False, default=True)
-    has_rough: bool = struct.field(pytree_node=False, default=True)
+    has_transmission: bool = pytree.field(pytree_node=False, default=True)
+    has_rough: bool = pytree.field(pytree_node=False, default=True)
     #: any material declares ResponseType.BOTH. The reference declares the
     #: value but its trace loop default-returns on it (material.ts:25,
     #: raytracer.ts:250-251) — reproduced when RenderConfig.fresnel_both
     #: is False; True enables the Fresnel-split extension (ops/trace).
-    has_both: bool = struct.field(pytree_node=False, default=False)
+    has_both: bool = pytree.field(pytree_node=False, default=False)
 
     @property
     def n_spheres(self) -> int:

@@ -1,6 +1,6 @@
 """Texture tables + branchless sampling.
 
-TPU re-design of the reference texture class hierarchy
+Re-design of the reference texture class hierarchy
 (/root/reference/src/texture/texture.ts:26-35, texture_solid.ts:21-44,
 texture_image.ts:20-137): virtual ``get_color(u, v)`` dispatch becomes two
 static tables —
@@ -21,25 +21,25 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree
 
 from ..config import TextureKind
 
 Array = jnp.ndarray
 
 
-@struct.dataclass
+@pytree.dataclass
 class TextureTable:
     kind: Array        # [X] i32: TextureKind
     ref: Array         # [X] i32: row into atlas for IMAGE kind (0 for solid)
     solid_rgb: Array   # [X, 3] f32: solid color / image fallback
     atlas: Array       # [I, H, W, 3] f32 (I >= 1; row 0 is a dummy when unused)
     #: static: any IMAGE-kind entries? When False the atlas gather is
-    #: compiled out entirely (solid colors ride a one-hot MXU matmul).
-    has_images: bool = struct.field(pytree_node=False, default=True)
+    #: compiled out entirely (solid colors ride a one-hot matmul).
+    has_images: bool = pytree.field(pytree_node=False, default=True)
     #: static: any IMAGE_BILINEAR entries? Gates the 4-tap filtered path
     #: (the extra gathers are compiled out for nearest-only scenes).
-    has_bilinear: bool = struct.field(pytree_node=False, default=False)
+    has_bilinear: bool = pytree.field(pytree_node=False, default=False)
     #: per-image NATIVE sizes [I] i32 (images are stored top-left in a
     #: max-size padded atlas). None = every image fills the atlas (the
     #: legacy fixed-resolution mode). The reference samples images at
@@ -56,26 +56,25 @@ class TextureTable:
 def is_image_kind(kind: Array) -> Array:
     """Bool mask: does this TextureKind sample the atlas (nearest OR
     bilinear)? The single predicate every image-vs-solid dispatch site
-    uses (trace glue, tiled glue, candidate packing)."""
+    uses."""
     return ((kind == int(TextureKind.IMAGE))
             | (kind == int(TextureKind.IMAGE_BILINEAR)))
 
 
-#: group size of the two-level MXU atlas gather (64 texels per one-hot
-#: group keeps the stage-1 matmul lanes at 192->256 pad); atlases with
-#: more than ATLAS_MXU_MAX_GROUPS groups fall back to jnp.take
-ATLAS_MXU_GROUP = 64
-ATLAS_MXU_MAX_GROUPS = 4096
+#: group size of the two-level one-hot atlas gather (64 texels per
+#: one-hot group row); atlases with more than ATLAS_MAX_GROUPS groups fall
+#: back to jnp.take
+ATLAS_GROUP = 64
+ATLAS_MAX_GROUPS = 4096
 
 
 def _atlas_gather(atlas: Array, img_row: Array, row: Array,
                   col: Array) -> Array:
     """``atlas[img_row, row, col]`` -> [N, 3] texel colors.
 
-    XLA lowers the per-ray advanced-index gather to ~14 ns/element on TPU
-    (measured r3) — ~11 ms per bounce at 512^2, the config-3 image-glue
-    sink (r4 exp_c3). This two-level formulation rides the MXU instead:
-    a one-hot matmul picks each ray's 64-texel GROUP row from the
+    Two levels instead of a per-ray advanced-index gather (whether this
+    beats ``jnp.take`` on the GPU is ROADMAP A5's open question): a one-hot
+    matmul picks each ray's 64-texel GROUP row from the
     flattened [R/64, 64*3] atlas (exact under Precision.HIGHEST, gradient
     flows to the atlas through the standard transpose — image-texture
     fitting keeps working), then a fused compare-multiply-reduce selects
@@ -83,9 +82,9 @@ def _atlas_gather(atlas: Array, img_row: Array, row: Array,
     """
     i, h, w, _ = atlas.shape
     r = i * h * w
-    g = ATLAS_MXU_GROUP
+    g = ATLAS_GROUP
     n_grp = -(-r // g)
-    if n_grp > ATLAS_MXU_MAX_GROUPS:
+    if n_grp > ATLAS_MAX_GROUPS:
         return atlas[img_row, row, col]
     from ..ops.gather import onehot_gather
 
@@ -98,8 +97,8 @@ def _atlas_gather(atlas: Array, img_row: Array, row: Array,
     tmp = onehot_gather(flat // g, tabw)                  # [N, g*3]
     lo = flat % g
     sel = (lo[:, None] == jnp.arange(g, dtype=jnp.int32)[None, :])
-    # HIGHEST: if XLA lowers the batched contraction onto the MXU, default
-    # precision would bf16-round the texel colors (the project-wide rule)
+    # HIGHEST: a lower-precision contraction (TF32 on a GPU) would round
+    # the texel colors (the project-wide rule)
     return jnp.einsum("nl,nlc->nc", sel.astype(tab.dtype),
                       tmp.reshape(-1, g, 3),
                       precision=jax.lax.Precision.HIGHEST)

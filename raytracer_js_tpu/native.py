@@ -2,9 +2,10 @@
 
 Native host-side components of the framework (the reference has none —
 SURVEY.md §2 "zero native components"): octree CSR build and OBJ loading.
-The library is built on demand with ``make -C native``; every entry point
-has a NumPy fallback so the framework works unbuilt (the fallback IS the
-specification — tests compare the two).
+The library is not committed: it is built from ``native/scenekit.cpp`` into
+the git-ignored ``native/build/`` on first use (``make -C native``); every
+entry point has a NumPy fallback so the framework works unbuilt (the
+fallback IS the specification — tests compare the two).
 """
 from __future__ import annotations
 
@@ -18,10 +19,10 @@ import numpy as np
 
 _REPO = pathlib.Path(__file__).resolve().parent.parent
 _NATIVE_DIR = _REPO / "native"
-_LIB_PATH = _NATIVE_DIR / "libscenekit.so"
+_LIB_PATH = _NATIVE_DIR / "build" / "libscenekit.so"
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_lib_failed = False
+_lib_error: Optional[str] = None
 
 _f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
@@ -31,17 +32,20 @@ _i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 
 def _load() -> Optional[ctypes.CDLL]:
     """Build (once) and load the shared library; None if unavailable."""
-    global _lib, _lib_failed
+    global _lib, _lib_error
     with _lock:
-        if _lib is not None or _lib_failed:
+        if _lib is not None or _lib_error is not None:
             return _lib
         try:
             if not _LIB_PATH.exists():
                 subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
-                               capture_output=True, timeout=120)
+                               capture_output=True, text=True, timeout=120)
             lib = ctypes.CDLL(str(_LIB_PATH))
-        except Exception:
-            _lib_failed = True
+        except subprocess.CalledProcessError as e:
+            _lib_error = f"make -C native failed:\n{e.stderr}"
+            return None
+        except Exception as e:
+            _lib_error = repr(e)
             return None
         lib.sk_count_pairs.restype = ctypes.c_int64
         lib.sk_count_pairs.argtypes = [_f32p, _f32p, _u8p, ctypes.c_int64,
@@ -65,6 +69,13 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def require() -> None:
+    """Raise unless the native library builds and loads: for timed set-up,
+    which must not fall back to the much slower NumPy paths unnoticed."""
+    if _load() is None:
+        raise RuntimeError(f"native scenekit unavailable: {_lib_error}")
 
 
 # ---------------------------------------------------------------------------

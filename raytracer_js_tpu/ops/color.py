@@ -1,6 +1,6 @@
 """RGBA color operations.
 
-TPU re-design of the reference's ``src/physics/color.ts``: the per-pixel
+Re-design of the reference's ``src/physics/color.ts``: the per-pixel
 RGBA record functions (mul :50-52, scale :38-47, clamp :28-36, alpha overlay
 :59-65) become broadcasting ops over ``[..., 4]`` (RGBA) and ``[..., 3]``
 (RGB) arrays. The trace path itself carries plain RGB; RGBA overlay exists

@@ -1,30 +1,25 @@
-"""MXU-friendly row gathers with a residual-free custom VJP.
+"""One-hot-matmul row gathers with a residual-free VJP.
 
-XLA lowers ``table[idx]`` per-ray gathers on TPU to slow scatter/gather
-sequences; for the small tables this framework gathers from (primitive
-params, material columns, solid-texture colors — tens to thousands of rows)
-the fast TPU idiom is a one-hot matmul: ``one_hot(idx) @ table`` rides the
-MXU as a dense [N, K] x [K, C] contraction, with XLA fusing the
-``iota == idx`` compare into the matmul operand so the one-hot is never
-materialized in HBM.
+The tables this framework gathers from per ray (primitive params, material
+columns, solid-texture colors) are small: tens to thousands of rows.
+``one_hot(idx) @ table`` is a dense [N, K] x [K, C] contraction at HIGHEST
+precision, with the ``iota == idx`` compare fused into the matmul operand so
+the one-hot is never materialized; its VJP is another dense contraction
+instead of a scatter-add. Whether this beats ``jnp.take`` on the GPU is an
+open question (ROADMAP A5).
 
-Autodiff is where the naive version fell over (measured r3): the one-hot is
-an *operand* of the matmul, so plain autodiff SAVES the logical [N, K]
-array as a VJP residual — 8.4 GB per gather at 2.09M rays x 1002 rows,
-OOMing the chip, and ~0.4 GB per gather even at the 50-prim headline scene
-(several gathers per bounce x refmax bounces of pure HBM residual traffic).
-:func:`onehot_gather` is therefore wrapped in ``jax.checkpoint``: the VJP
-residuals shrink to the gather's *inputs* (the [N] int32 index and the
-small table), the backward pass rebuilds the one-hot compare on the fly
-(fused into the [K, N] x [N, C] cotangent contraction exactly as the
-forward fuses it), and — unlike a hand-written custom_vjp — the standard
+Autodiff: the one-hot is an *operand* of the matmul, so plain autodiff would
+SAVE the logical [N, K] array as a VJP residual (8.4 GB per gather at 2.09M
+rays x 1002 rows). :func:`onehot_gather` is therefore wrapped in
+``jax.checkpoint``: the VJP residuals shrink to the gather's *inputs* (the
+[N] int32 index and the small table), the backward pass rebuilds the one-hot
+compare on the fly, and — unlike a hand-written custom_vjp — the standard
 transpose machinery still inserts the automatic psum for replicated table
-cotangents under shard_map, so the sharded fit path keeps its exact
-gradient semantics. Residual cost drops from O(N*K) to O(N) per gather.
+cotangents under shard_map, so the sharded fit path keeps its exact gradient
+semantics. Residual cost drops from O(N*K) to O(N) per gather.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import jax
@@ -33,17 +28,12 @@ import numpy as np
 
 Array = jnp.ndarray
 
-#: one-hot gather row cutoff. With the custom VJP nothing [N, K]-shaped is
-#: ever saved, so the limit is pure MXU flops (N*K*C MACs each way) versus
-#: jnp.take's per-element gather cost (~1.4 ns/elem on-chip, and a
-#: serialized scatter-add in its VJP). Measured r3/r4: one-hot wins by a
-#: wide margin through the low thousands of rows; 4096 covers the 1000-prim
-#: backward bench class on the MXU in both directions.
+#: one-hot gather row cutoff: above it the per-gather contraction costs
+#: more than a plain take.
 ONE_HOT_MAX_ROWS = 4096
 
-#: logical [N, K] cap — a flop guard now, not a memory guard (nothing is
-#: materialized or saved): 2^33 keeps the worst per-gather contraction at
-#: ~N*K*C ~ 1e11 MACs (a few ms on the MXU), past which take/scatter wins.
+#: logical [N, K] cap — a flop guard (nothing is materialized or saved):
+#: 2^33 bounds the per-gather contraction at ~N*K*C ~ 1e11 MACs.
 #: Million-row tables (config 5's prim table) stay on the take path.
 ONE_HOT_MAX_ELEMS = 1 << 33
 
@@ -77,37 +67,12 @@ def _check_int_exact(t: Array) -> None:
 def onehot_gather(idx: Array, cat: Array) -> Array:
     """``cat[idx]`` for [N] int idx and [K, C] float cat via one-hot matmul.
 
-    HIGHEST precision: the default TPU matmul rounds operands to bf16
-    (0.6 -> 0.6015625), silently corrupting float columns; the 3-pass f32
-    split reproduces one-hot selection exactly. ``jax.checkpoint`` keeps the
+    HIGHEST precision: a lower-precision matmul (bf16 operands, or TF32
+    on a GPU) would round the float columns (0.6 -> 0.6015625 in bf16);
+    at HIGHEST one-hot selection is exact. ``jax.checkpoint`` keeps the
     [N, K] one-hot out of the VJP residuals (see module docstring).
-
-    ``RT_GATHER_SPLIT=1`` (experimental, read at trace time) switches to a
-    hand 3-way bf16 split of the TABLE side only: the one-hot operand is
-    exact in bf16 (entries are 0/1), so ``oh_bf16 @ (hi + mid + lo)`` with
-    f32 accumulation reproduces each selected row to ~1 ulp f32 with DEFAULT
-    precision matmuls (3 MXU passes instead of HIGHEST's 6, and a bf16
-    one-hot operand at half the stream width). FORWARD-ONLY: the autodiff
-    transpose of these DEFAULT-precision dots bf16-rounds the f32 cotangent
-    flowing to the table (~0.4% — exactly the corruption the HIGHEST rule
-    exists to prevent), and int columns lose the exact-roundtrip guarantee.
-    Do not benchmark or fit gradients with this flag set.
     """
-    import os
-
     k = cat.shape[0]
-    if os.environ.get("RT_GATHER_SPLIT", "") == "1":
-        oh = (idx[:, None] == jax.lax.iota(jnp.int32, k)[None, :]).astype(
-            jnp.bfloat16)
-        c32 = cat.astype(jnp.float32)
-        hi = c32.astype(jnp.bfloat16)
-        r1 = c32 - hi.astype(jnp.float32)
-        mid = r1.astype(jnp.bfloat16)
-        lo = (r1 - mid.astype(jnp.float32)).astype(jnp.bfloat16)
-        dn = (((1,), (0,)), ((), ()))
-        dot = functools.partial(jax.lax.dot_general, dimension_numbers=dn,
-                                preferred_element_type=jnp.float32)
-        return dot(oh, hi) + dot(oh, mid) + dot(oh, lo)
     oh = (idx[:, None] == jax.lax.iota(jnp.int32, k)[None, :]).astype(
         cat.dtype)
     return jnp.matmul(oh, cat, precision=jax.lax.Precision.HIGHEST)
@@ -117,9 +82,8 @@ def onehot_gather(idx: Array, cat: Array) -> Array:
 def _onehot_gather_pair(idx: Array, grad_tab: Array, disc_tab: Array):
     """One shared one-hot, two matmuls: differentiable rows + stop-grad
     flag rows. The [N, K] operand is generated ONCE per autodiff direction
-    (separate checkpointed gathers each rebuild it — measured r4: that
-    doubled the 1000-prim replay forward), and the flag dot contributes no
-    transpose work to the VJP."""
+    (separate checkpointed gathers would each rebuild it), and the flag dot
+    contributes no transpose work to the VJP."""
     k = grad_tab.shape[0]
     oh = (idx[:, None] == jax.lax.iota(jnp.int32, k)[None, :]).astype(
         grad_tab.dtype)
@@ -150,7 +114,7 @@ def gather_rows_pair(grad_tab: Array, disc_tab: Array, idx: Array):
 def gather_rows(table: Array, idx: Array) -> Array:
     """``table[idx]`` for a [K, C...] table and [N] int idx -> [N, C...].
 
-    One-hot matmul for small K (MXU, residual-free VJP), jnp.take otherwise.
+    One-hot matmul for small K (residual-free VJP), jnp.take otherwise.
     """
     k = table.shape[0]
     if k == 0:

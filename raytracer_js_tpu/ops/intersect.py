@@ -1,6 +1,6 @@
 """Batched analytic ray-primitive intersection.
 
-TPU re-design of the reference's scalar intersection module
+Re-design of the reference's scalar intersection module
 (/root/reference/src/math/intersection.ts): instead of one ray against one
 shape returning a param list, every function here evaluates a *wavefront* of
 rays against a *table* of primitives as dense array math.
@@ -8,9 +8,8 @@ rays against a *table* of primitives as dense array math.
 Two layers:
 
 * ``*_hit_t`` — [rays, prims] nearest-forward-hit parameter matrices
-  (misses are +inf). The sphere test is factored into ``rays @ centers.T``
-  matmuls so XLA can put the O(N*S) work on the MXU instead of
-  materializing [N, S, 3] differences.
+  (misses are +inf), written over per-component [N, P] planes so the whole
+  test is elementwise and fuses into the caller's argmin.
 * ``*_surface`` — per-ray recompute of (t, point, normal, uv) for one already
   chosen primitive. The discrete nearest-hit *search* is non-differentiable
   by construction (indices); gradients flow through this analytic recompute
@@ -50,35 +49,34 @@ def _first_forward(t_near: Array, t_far: Array, valid: Array) -> Array:
 # Spheres
 # ---------------------------------------------------------------------------
 
+def _planes(org: Array, dir: Array):
+    """[N, 3] rays -> six [N, 1] component columns (ox, oy, oz, dx, dy, dz)."""
+    return tuple(v[:, i:i + 1] for v in (org, dir) for i in range(3))
+
+
 def sphere_hit_t(org: Array, dir: Array, center: Array, radius: Array) -> Array:
     """Nearest forward hit params for [N] rays x [S] spheres -> [N, S].
 
-    Quadratic-discriminant test (intersection.ts:109-128) refactored so the
-    cross terms are two [N,3]x[3,S] matmuls (MXU) rather than an [N,S,3]
-    broadcast (HBM). The reference caches dot(pos,pos) and r^2 per sphere
-    (intersection.ts:86-89); here those are the c_dot_c / r2 row vectors.
+    Quadratic-discriminant test (intersection.ts:109-128) written per xyz
+    component over [N, S] planes: elementwise math that XLA fuses into the
+    caller's min/argmin, with no [N, S, 3] intermediate. The fused kernel
+    (kernels/trace_fused) evaluates the same expression term for term.
     """
     if center.shape[0] == 0:
         return jnp.full((org.shape[0], 0), INF, org.dtype)
-    # HIGHEST precision: the default TPU matmul rounds operands to bf16
-    # (~0.4% error) — far beyond the 1e-4 golden contract for hit params
-    d_dot_c = jnp.matmul(dir, center.T,
-                         precision=jax.lax.Precision.HIGHEST)  # [N, S]
-    o_dot_c = jnp.matmul(org, center.T,
-                         precision=jax.lax.Precision.HIGHEST)  # [N, S]
-    o_dot_d = dot(org, dir)[:, None]              # [N, 1]
-    o_dot_o = dot(org, org)[:, None]              # [N, 1]
-    a = dot(dir, dir)[:, None]                    # [N, 1] (1 for unit dirs)
-    c_dot_c = dot(center, center)[None, :]        # [1, S]
-    r2 = (radius ** 2)[None, :]                   # [1, S]
-
-    b_half = o_dot_d - d_dot_c                    # dot(org - c, dir)
-    c = o_dot_o - 2.0 * o_dot_c + c_dot_c - r2    # |org - c|^2 - r^2
+    ox, oy, oz, dx, dy, dz = _planes(org, dir)
+    ocx = ox - center[None, :, 0]
+    ocy = oy - center[None, :, 1]
+    ocz = oz - center[None, :, 2]
+    a = dx * dx + dy * dy + dz * dz                 # [N, 1]
+    inv_a = 1.0 / a
+    b_half = ocx * dx + ocy * dy + ocz * dz         # dot(org - c, dir)
+    c = (ocx * ocx + ocy * ocy + ocz * ocz) - (radius ** 2)[None, :]
     disc = b_half * b_half - a * c
     valid = disc >= 0.0
     sq = jnp.sqrt(jnp.where(valid, disc, 0.0))
-    t_near = (-b_half - sq) / a
-    t_far = (-b_half + sq) / a
+    t_near = (-b_half - sq) * inv_a
+    t_far = (-b_half + sq) * inv_a
     return _first_forward(t_near, t_far, valid)
 
 
@@ -152,16 +150,27 @@ def _slab(org: Array, dir: Array, lo: Array, hi: Array):
 def box_hit_t(org: Array, dir: Array, center: Array, half: Array) -> Array:
     """Nearest forward hit params for [N] rays x [B] boxes -> [N, B].
 
-    6-slab test (intersection.ts:150-204). ``u1 > u2`` is a miss; the
-    equality (corner graze) is a hit, as in the reference (:193).
+    6-slab test (intersection.ts:150-204) over [N, B] component planes.
+    ``u1 > u2`` is a miss; the equality (corner graze) is a hit, as in the
+    reference (:193).
     """
     if center.shape[0] == 0:
         return jnp.full((org.shape[0], 0), INF, org.dtype)
-    o = org[:, None, :]
-    d = dir[:, None, :]
-    lo = (center - half)[None, :, :]
-    hi = (center + half)[None, :, :]
-    t_enter, t_exit, _, _ = _slab(o, d, lo, hi)
+    planes = _planes(org, dir)
+    lo = (center - half).T                          # [3, B]
+    hi = (center + half).T
+    t0, t1 = [], []
+    for i in range(3):
+        o, d = planes[i], planes[3 + i]
+        d_safe = jnp.where(jnp.abs(d) < SLAB_DIR_EPS,
+                           jnp.where(d < 0, -SLAB_DIR_EPS, SLAB_DIR_EPS), d)
+        inv = 1.0 / d_safe
+        ta = (lo[i][None, :] - o) * inv
+        tb = (hi[i][None, :] - o) * inv
+        t0.append(jnp.minimum(ta, tb))
+        t1.append(jnp.maximum(ta, tb))
+    t_enter = jnp.maximum(jnp.maximum(t0[0], t0[1]), t0[2])
+    t_exit = jnp.minimum(jnp.minimum(t1[0], t1[1]), t1[2])
     return _first_forward(t_enter, t_exit, t_enter <= t_exit)
 
 
@@ -193,14 +202,8 @@ def box_surface(org: Array, dir: Array, center: Array, half: Array):
     sign = jnp.where(d_axis < 0.0, -1.0, 1.0)
     normal = -sign[..., None] * ax_onehot
     # face index in reference FACE_NORMALS order: (-x,+x,-y,+y,-z,+z).
-    # The whole uv chain is PURE F32 elementwise math on the existing
-    # ax_onehot planes — no i32 temps, no extra one-hot stacks: r5
-    # measured the original int-indexed formulation costing ~13 ms per
-    # 262k-ray sweep round inside the TILED while-loop (half the config-3
-    # image-scene round; tools/bench_results_r5/exp_c3g.jsonl) — the [n]
-    # integer temps materialize T(8,128)-padded buffers there (the r4
-    # exactness-caveat pathology). Values are bit-identical: 0..5 face
-    # arithmetic and 0/1 selector dots are exact in f32.
+    # The uv chain is f32 elementwise math on the ax_onehot planes: 0..5
+    # face arithmetic and 0/1 selector dots are exact in f32.
     outward_sign = jnp.where(entering, -sign, sign)
     a0 = ax_onehot[..., 0]
     a1 = ax_onehot[..., 1]
@@ -211,9 +214,7 @@ def box_surface(org: Array, dir: Array, center: Array, half: Array):
     # eps-guarded: unified-row callers feed non-box rows with zero half
     # widths whose masked lanes must stay NaN-free in primal AND gradient
     # (real boxes are unaffected). The axis picks are 0/1-weighted sums,
-    # not take_along_axis: the per-ray minor-dim gather VJP is a
-    # serialized scatter on TPU (measured r4: the surface VJP dominated
-    # the whole replay backward).
+    # not take_along_axis, so the VJP stays elementwise.
     rel = jnp.clip((point - lo) / jnp.maximum(2.0 * half, 1e-12),
                    0.0, 1.0 - 2.0 ** -23)
     # b_axis one-hot = [a1+a2, a0, 0]; c_axis one-hot = [0, a2, a0+a1]
@@ -224,7 +225,7 @@ def box_surface(org: Array, dir: Array, center: Array, half: Array):
 
 
 def jax_onehot3(axis: Array) -> Array:
-    """One-hot over the trailing xyz axis without 1D iota (TPU-safe)."""
+    """One-hot over the trailing xyz axis."""
     return jnp.stack(
         [(axis == 0), (axis == 1), (axis == 2)], axis=-1
     ).astype(jnp.float32)
@@ -235,21 +236,26 @@ def jax_onehot3(axis: Array) -> Array:
 # ---------------------------------------------------------------------------
 
 def tri_hit_t(org: Array, dir: Array, v0: Array, v1: Array, v2: Array) -> Array:
-    """Moeller-Trumbore for [N] rays x [T] triangles -> [N, T]."""
+    """Moeller-Trumbore for [N] rays x [T] triangles -> [N, T], over
+    component planes."""
     if v0.shape[0] == 0:
         return jnp.full((org.shape[0], 0), INF, org.dtype)
-    e1 = (v1 - v0)[None, :, :]
-    e2 = (v2 - v0)[None, :, :]
-    d = dir[:, None, :]
-    o = org[:, None, :]
-    p = cross(d, e2)
-    det = dot(e1, p)
+    ox, oy, oz, dx, dy, dz = _planes(org, dir)
+    e1x, e1y, e1z = (v1 - v0).T[:, None, :]
+    e2x, e2y, e2z = (v2 - v0).T[:, None, :]
+    v0x, v0y, v0z = v0.T[:, None, :]
+    px = dy * e2z - dz * e2y                        # cross(d, e2)
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
     inv_det = 1.0 / jnp.where(jnp.abs(det) < MT_EPS, MT_EPS, det)
-    s = o - v0[None, :, :]
-    u = dot(s, p) * inv_det
-    q = cross(s, e1)
-    v = dot(d, q) * inv_det
-    t = dot(e2, q) * inv_det
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    u = (sx * px + sy * py + sz * pz) * inv_det
+    qx = sy * e1z - sz * e1y                        # cross(s, e1)
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     valid = (
         (jnp.abs(det) >= MT_EPS)
         & (u >= 0.0)

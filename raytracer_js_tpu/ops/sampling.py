@@ -1,6 +1,6 @@
 """Counter-based random sampling for scatter.
 
-TPU re-design of the reference RNG stack (/root/reference/src/math/rng/):
+Re-design of the reference RNG stack (reference src/math/rng/):
 the single sequential ``FpLcg`` stream (fp-lcg.ts:50-83) cannot exist in a
 data-parallel wavefront — every ray would contend for one state. Instead
 every draw is a pure function of ``(seed, global ray id, bounce, salt)``
@@ -15,8 +15,7 @@ functions execute unchanged inside Pallas kernel bodies — the fused
 whole-trace kernel draws identical scatter directions to the XLA wavefront
 path (golden parity for rough scenes at fused-kernel tolerance), where
 threefry key folding + ``jax.random.normal``'s erfinv bit paths could not
-be reproduced in-kernel. ``lowbias32`` uses constant shifts only (Mosaic
-has no data-dependent vector shifts).
+be reproduced in-kernel. ``lowbias32`` uses constant shifts only.
 
 The unit-ball direction sample replaces the reference's rejection loop
 (vector_utils.ts:8-14, ~pi/6 acceptance — unvectorizable) with the exact
@@ -77,8 +76,8 @@ def hash_u32(seed: Array, rid: Array, bounce: Array, salt: int) -> Array:
 def uniform01(bits: Array) -> Array:
     """uint32 bits -> f32 uniform in [0, 1) (24-bit mantissa path).
 
-    The high 24 bits go through int32 (exact below 2^24): Mosaic has no
-    uint32 -> f32 cast, and the int32 route is bit-identical on XLA too.
+    The high 24 bits go through int32 (exact below 2^24), the same
+    conversion inside the kernel and in XLA.
     """
     return ((bits >> 8).astype(jnp.int32).astype(jnp.float32)
             * jnp.float32(1.0 / (1 << 24)))
@@ -99,26 +98,28 @@ def ball_sample_xyz(seed: Array, rid: Array, bounce: Array):
     phi = _TWO_PI * ray_uniform(seed, rid, bounce, SALT_PHI)
     u_r = ray_uniform(seed, rid, bounce, SALT_R)
     s = jnp.sqrt(jnp.maximum(1.0 - z * z, 0.0))
-    # cbrt via exp/log (Mosaic-safe); u_r floored away from 0 (r(2^-25) ~ 3e-3)
+    # cbrt via exp/log; u_r floored away from 0 (r(2^-25) ~ 3e-3)
     r = jnp.exp(jnp.log(jnp.maximum(u_r, 2.0 ** -25)) * (1.0 / 3.0))
     return r * s * jnp.cos(phi), r * s * jnp.sin(phi), r * z
 
 
 def scatter_direction_xyz(seed: Array, rid: Array, bounce: Array,
                           rx: Array, ry: Array, rz: Array,
-                          nx: Array, ny: Array, nz: Array, rho: Array):
+                          nx: Array, ny: Array, nz: Array, rho: Array,
+                          div=jnp.divide):
     """Roughness-lerped scatter (raytracer.ts:121-133), elementwise planes:
     ``normalize((1 - rho) * reflected + rho * ball_sample_in_hemisphere)``,
     with the ball sample flipped into the hemisphere of the normal
     (raytracer.ts:121-127) and roughness 0 returning exactly ``reflected``
-    (the draw has no effect there — deterministic golden tests)."""
+    (the draw has no effect there — deterministic golden tests).
+    ``div`` lets a kernel supply its own correctly rounded division."""
     bx, by, bz = ball_sample_xyz(seed, rid, bounce)
     flip = jnp.where(bx * nx + by * ny + bz * nz < 0.0, -1.0, 1.0)
     bx, by, bz = bx * flip, by * flip, bz * flip
     mx = (1.0 - rho) * rx + rho * bx
     my = (1.0 - rho) * ry + rho * by
     mz = (1.0 - rho) * rz + rho * bz
-    inv = 1.0 / jnp.sqrt(jnp.maximum(mx * mx + my * my + mz * mz, 1e-20))
+    inv = div(1.0, jnp.sqrt(jnp.maximum(mx * mx + my * my + mz * mz, 1e-20)))
     rough = rho > 0.0
     return (jnp.where(rough, mx * inv, rx),
             jnp.where(rough, my * inv, ry),

@@ -1,6 +1,6 @@
 """Spatial containment predicates.
 
-TPU re-design of the reference's ``src/space.ts``: the scalar
+Re-design of the reference's ``src/space.ts``: the scalar
 ``point_in_space`` / ``space_in_space`` / ``aabb_in_space`` / overlap-volume
 functions (space.ts:55-128) become broadcasting array predicates over
 ``[..., 3]`` batches — the vectorized primitives the octree build and the

@@ -1,6 +1,6 @@
 """Batched 3-vector algebra on ``[..., 3]`` arrays.
 
-TPU-native re-design of the reference's scalar vector module
+Re-design of the reference's scalar vector module
 (/root/reference/src/math/vector.ts): free functions over ``{v: number[]}``
 records become broadcasting ``jnp`` ops over trailing-3 axes, so every ray in
 a wavefront is one lane of the same instruction. The in-place ``*_self``

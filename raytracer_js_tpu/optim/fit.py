@@ -194,17 +194,6 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
                                      start_refr=refr0, accel=accel))
         return recs
 
-    # Fused replay forward/backward Pallas kernels for the supported class
-    # (kernels/replay_grad — the custom VJP composes with autodiff above it:
-    # pixel_rays stays differentiable for fit_cameras, texture prejoin
-    # routes rgb cotangents to solid_rgb). Under a mesh the kernel runs per
-    # shard with EXPLICIT psum (see the sharded step below) because a
-    # custom_vjp has no varying-axes rule for the implicit one.
-    from ..kernels import replay_grad as rg_kernel
-
-    use_replay_kernel = (fit_cfg.replay_every > 0
-                         and rg_kernel.supports(scene, cfg))
-
     def loss_replay(params, key, recs):
         sc, cams = rebuild_all(params)
         total = jnp.zeros((), jnp.float32)
@@ -213,16 +202,11 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
             org, dirs = pixel_rays(cam)
             rid = (jnp.arange(org.shape[0], dtype=jnp.int32)
                    + v * org.shape[0])
-            if use_replay_kernel:
-                colors = rg_kernel.replay_colors(sc, cfg, org, dirs,
-                                                   recs[v])
-            else:
-                refr0 = jnp.broadcast_to(start_substance(sc, cam.pos),
-                                         (org.shape[0],))
-                st = trace_rays(sc, cfg, org, dirs, key, rid,
-                                start_refr=refr0, pid_seq=recs[v])
-                colors = st.color
-            total = total + jnp.sum((colors - targets[v]) ** 2)
+            refr0 = jnp.broadcast_to(start_substance(sc, cam.pos),
+                                     (org.shape[0],))
+            st = trace_rays(sc, cfg, org, dirs, key, rid,
+                            start_refr=refr0, pid_seq=recs[v])
+            total = total + jnp.sum((st.color - targets[v]) ** 2)
             n_pix += org.shape[0]
         return total / n_pix
 
@@ -245,8 +229,6 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
         # parallel.sharding.sharded_fit_step NOTE).
         from jax.sharding import PartitionSpec as P
 
-        from ..config import HitBackend
-
         view_rays = [pixel_rays(cam) for cam in cameras]
         orgs = jnp.stack([o for o, _ in view_rays])          # [V, N, 3]
         dirss = jnp.stack([d for _, d in view_rays])
@@ -258,28 +240,16 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
         rids = (jnp.arange(n_view, dtype=jnp.int32)[None, :]
                 + jnp.arange(n_views, dtype=jnp.int32)[:, None] * n_view)
         n_total = n_views * n_view
-        # PALLAS kernels have no shard_map batching rule on the CPU mesh;
-        # the dense search is the safe in-shard default for off-TILED runs.
-        shard_cfg = cfg
-        if cfg.backend == HitBackend.TILED:
-            shard_cfg = dataclasses.replace(cfg, backend=HitBackend.BRUTE)
-
         def _local_loss(params, o, d, rid, tgt, key, accel, recs):
             sc = rebuild(params)
             total = jnp.zeros((), jnp.float32)
             for v in range(n_views):
-                if recs is not None and use_replay_kernel:
-                    colors = rg_kernel.replay_colors(sc, shard_cfg, o[v],
-                                                     d[v], recs[v])
-                else:
-                    refr0 = jnp.broadcast_to(start_substance(sc, o[v, 0]),
-                                             (o.shape[1],))
-                    st = trace_rays(sc, shard_cfg, o[v], d[v], key, rid[v],
-                                    start_refr=refr0, accel=accel,
-                                    pid_seq=None if recs is None
-                                    else recs[v])
-                    colors = st.color
-                total = total + jnp.sum((colors - tgt[v]) ** 2)
+                refr0 = jnp.broadcast_to(start_substance(sc, o[v, 0]),
+                                         (o.shape[1],))
+                st = trace_rays(sc, cfg, o[v], d[v], key, rid[v],
+                                start_refr=refr0, accel=accel,
+                                pid_seq=None if recs is None else recs[v])
+                total = total + jnp.sum((st.color - tgt[v]) ** 2)
             return total / n_total
 
         ray_sp = P(None, RAY_AXIS)
@@ -292,12 +262,6 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
         def _replay_step(params, o, d, rid, tgt, recs, key):
             loss, grads = jax.value_and_grad(_local_loss)(
                 params, o, d, rid, tgt, key, None, recs)
-            if use_replay_kernel:
-                # the kernel step runs under check_vma=False (a custom_vjp
-                # has no varying-axes rule), so NO implicit psum fires for
-                # the replicated params — all-reduce explicitly; bitwise
-                # the same total as the XLA path's implicit psum
-                grads = jax.lax.psum(grads, RAY_AXIS)
             return jax.lax.psum(loss, RAY_AXIS), grads
 
         def _record_local(params, o, d, rid, key, accel):
@@ -306,7 +270,7 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
             for v in range(n_views):
                 refr0 = jnp.broadcast_to(start_substance(sc, o[v, 0]),
                                          (o.shape[1],))
-                outs.append(record_paths(sc, shard_cfg, o[v], d[v], key,
+                outs.append(record_paths(sc, cfg, o[v], d[v], key,
                                          rid[v], start_refr=refr0,
                                          accel=accel))
             return jnp.stack(outs)                   # [V, n_shard, refmax]
@@ -335,21 +299,13 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
                 total = jnp.zeros((), jnp.float32)
                 for v in range(n_views):
                     o, d, rid = _rays_shard(cams, v)
-                    if recs is not None and use_replay_kernel:
-                        # the kernel returns org/dir cotangents, so the
-                        # pose gradient flows through pixel_rays exactly
-                        # as in the XLA path
-                        colors = rg_kernel.replay_colors(
-                            sc, shard_cfg, o, d, recs[v])
-                    else:
-                        refr0 = jnp.broadcast_to(
-                            start_substance(sc, cams[v].pos), (shard_n,))
-                        st = trace_rays(sc, shard_cfg, o, d, key, rid,
-                                        start_refr=refr0, accel=accel,
-                                        pid_seq=None if recs is None
-                                        else recs[v])
-                        colors = st.color
-                    total = total + jnp.sum((colors - tgt[v]) ** 2)
+                    refr0 = jnp.broadcast_to(
+                        start_substance(sc, cams[v].pos), (shard_n,))
+                    st = trace_rays(sc, cfg, o, d, key, rid,
+                                    start_refr=refr0, accel=accel,
+                                    pid_seq=None if recs is None
+                                    else recs[v])
+                    total = total + jnp.sum((st.color - tgt[v]) ** 2)
                 return total / n_total
 
             def _search_step_c(params, tgt, key, accel):
@@ -360,8 +316,6 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
             def _replay_step_c(params, tgt, recs, key):
                 loss, grads = jax.value_and_grad(_local_loss_c)(
                     params, tgt, key, None, recs)
-                if use_replay_kernel:
-                    grads = jax.lax.psum(grads, RAY_AXIS)
                 return jax.lax.psum(loss, RAY_AXIS), grads
 
             def _record_local_c(params, key, accel):
@@ -371,7 +325,7 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
                     o, d, rid = _rays_shard(cams, v)
                     refr0 = jnp.broadcast_to(
                         start_substance(sc, cams[v].pos), (shard_n,))
-                    outs.append(record_paths(sc, shard_cfg, o, d, key,
+                    outs.append(record_paths(sc, cfg, o, d, key,
                                              rid, start_refr=refr0,
                                              accel=accel))
                 return jnp.stack(outs)           # [V, n_shard, refmax]
@@ -381,8 +335,7 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
                 in_specs=(P(), ray_sp, P(), P()), out_specs=(P(), P()))
             replay_sh = shard_map(
                 _replay_step_c, mesh=mesh,
-                in_specs=(P(), ray_sp, ray_sp, P()), out_specs=(P(), P()),
-                **({"check_vma": False} if use_replay_kernel else {}))
+                in_specs=(P(), ray_sp, ray_sp, P()), out_specs=(P(), P()))
             record_sh = shard_map(
                 _record_local_c, mesh=mesh,
                 in_specs=(P(), P(), P()), out_specs=ray_sp)
@@ -400,8 +353,7 @@ def fit(scene: Scene, cfg: RenderConfig, cameras: Sequence[Camera],
             replay_sh = shard_map(
                 _replay_step, mesh=mesh,
                 in_specs=(P(), ray_sp, ray_sp, ray_sp, ray_sp, ray_sp, P()),
-                out_specs=(P(), P()),
-                **({"check_vma": False} if use_replay_kernel else {}))
+                out_specs=(P(), P()))
             record_sh = shard_map(
                 _record_local, mesh=mesh,
                 in_specs=(P(), ray_sp, ray_sp, ray_sp, P(), P()),

@@ -2,9 +2,9 @@
 
 A deliberately slow, loop-per-ray re-specification of the reference engine's
 behavior (/root/reference/src/raytracer.ts:166-277 and its callees), used as
-the golden-image and gradient-check oracle for every TPU path (SURVEY.md §7
+the golden-image and gradient-check oracle for every array path (SURVEY.md §7
 build step 1). No JAX anywhere — pure Python/NumPy scalars, so it is immune
-to every vectorization/fusion bug class the TPU paths could have.
+to every vectorization/fusion bug class the array paths could have.
 
 Behavior matches ops/trace.py bit-for-bit in float64-rounded-to-float32
 (tests use allclose, not equality), including the documented divergences
@@ -354,7 +354,7 @@ def trace_ray(s, org, dir, refmax, atten, start_refr, rng=None,
     """Scalar twin of ops/trace.trace_rays for one ray.
 
     ``rng = (seed, rid)`` enables the exact counter-RNG scatter for rough
-    materials (identical streams to every TPU backend); without it rough
+    materials (identical streams to every backend); without it rough
     materials raise. Returns (color[3], status, path)."""
     org = np.array(org, np.float64)
     dir = np.array(dir, np.float64)

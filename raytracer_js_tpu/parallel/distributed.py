@@ -3,7 +3,7 @@
 The reference has zero networking (SURVEY.md §5 "Distributed communication
 backend: none"); this is the BASELINE-mandated multi-host path: single-
 controller JAX, one process per host, scene replicated, rays sharded over
-all chips of the pod slice, gradients psum-reduced over ICI+DCN
+all devices of all hosts, gradients psum-reduced across them
 (parallel/sharding.py). This module owns process bootstrap and mesh
 construction; it is a thin, testable wrapper so every entry point (bench,
 fit CLI) initializes identically.
@@ -51,7 +51,7 @@ def init_distributed(coordinator: Optional[str] = None,
 
 
 def global_mesh():
-    """1-D ray mesh over every chip of every host (DCN x ICI flattened —
+    """1-D ray mesh over every device of every host (flat —
     legal because rays never communicate; only the psum crosses hosts)."""
     return make_mesh(jax.devices())
 

@@ -1,9 +1,9 @@
 """Ray-space sharding over a device mesh (shard_map + XLA collectives).
 
-The TPU-native scaling design prescribed by SURVEY.md §2/§5 for this
+The scaling design prescribed by SURVEY.md §2/§5 for this
 workload: rays are independent, so the ONLY parallel axis is the pixel/ray
-stream — tiles of rays sharded across chips, scene/materials/textures
-replicated, zero inter-chip communication in the forward pass, and one
+stream — tiles of rays sharded across devices, scene/materials/textures
+replicated, zero inter-device communication in the forward pass, and one
 ``psum`` all-reduce of scene-parameter gradients in the backward (the
 inverse-rendering fit). The reference has no analogue (single JS thread,
 ``for (let campx of ...)`` — raytracer.ts:318-329).
@@ -33,7 +33,7 @@ from ..render import render_rays
 Array = jnp.ndarray
 
 #: name of the single mesh axis rays are sharded over. With multi-host
-#: meshes this axis simply spans all chips of all hosts (DCN x ICI); rays
+#: meshes this axis simply spans all devices of all hosts; rays
 #: never communicate, so no finer factorization is needed.
 RAY_AXIS = "rays"
 
@@ -122,8 +122,8 @@ def sharded_fit_step(mesh: Mesh, scene: Scene, cfg: RenderConfig,
     Pixel L2 loss against ``target`` ([N, 3] flat). Each device renders its
     ray shard and differentiates the *local* loss contribution wrt the
     (replicated) scene parameters; a single ``psum`` over the ray axis
-    all-reduces both loss and gradients — the collective rides ICI within a
-    host and DCN across hosts, overlapped with the backward tail by XLA's
+    all-reduces both loss and gradients — XLA hands the collective to NCCL
+    (NVLink within a host, the network across hosts), overlapped with the backward tail by XLA's
     latency-hiding scheduler (SURVEY.md §5 "Distributed communication").
 
     ``grads`` matches the pytree returned by :func:`float_partition`.

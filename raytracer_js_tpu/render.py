@@ -1,6 +1,6 @@
 """Render frontend — the jitted ``render(scene, camera) -> image`` entry.
 
-TPU re-design of ``Raytracer.trace_frame()`` (/root/reference/src/
+Re-design of ``Raytracer.trace_frame()`` (reference src/
 raytracer.ts:281-339): the per-pixel Python loop becomes one wavefront of
 ``h*w`` rays traced in a single fused computation. The camera-position
 substance lookup happens once per frame (raytracer.ts:312-313), exactly as in
@@ -16,20 +16,13 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-from .config import RenderConfig
+from .config import HitBackend, RenderConfig
+from .kernels import trace_fused
 from .models.camera import Camera, pixel_rays
 from .models.scene import Scene
 from .ops import trace as trace_mod
 
 Array = jnp.ndarray
-
-#: scenes at or below this primitive count render faster on the PALLAS
-#: whole-table wavefront path than on the TILED candidate-list path
-#: (measured crossover notes at render_hdr); override via env for tuning
-import os as _os
-
-TILED_MIN_PRIMS = int(_os.environ.get("RT_TILED_MIN_PRIMS", "2048"))
-
 
 
 def _stochastic(scene: Scene, cfg: RenderConfig) -> bool:
@@ -52,20 +45,12 @@ def render_rays(scene: Scene, cfg: RenderConfig, org: Array, dir: Array,
     Sample s of ray i uses the RNG stream (key, ray_id[i]*spp + s), so the
     result is bitwise identical under any device sharding of the wavefront.
     """
-    from .config import HitBackend
-
-    if cfg.backend == HitBackend.TILED:
-        # the tiled path is frame-shaped (render_hdr); arbitrary wavefronts
-        # use the dense search
-        cfg = dataclasses.replace(cfg, backend=HitBackend.BRUTE)
     if cfg.backend == HitBackend.FUSED:
-        from .kernels import trace_fused
-
         if trace_fused.supports(scene):
-            # Whole bounce loop inside one Pallas kernel. Rough scenes draw
-            # from the same (key, ray_id*spp + s, bounce) counter streams
-            # as the XLA path below; deterministic scenes skip the RNG and
-            # the spp loop entirely (averaging identical samples is a no-op).
+            # Whole bounce loop inside one kernel. Rough scenes draw from
+            # the same (key, ray_id*spp + s, bounce) counter streams as the
+            # XLA path below; deterministic scenes skip the spp loop
+            # (averaging identical samples is a no-op).
             refr0 = (start_substance(scene, org[0])
                      if scene.has_transmission else None)
 
@@ -81,6 +66,7 @@ def render_rays(scene: Scene, cfg: RenderConfig, org: Array, dir: Array,
                 0, cfg.spp, lambda s, a: a + one_fused(s),
                 jnp.zeros_like(org))
             return acc / cfg.spp
+        # image textures, sky boxes and BOTH: the XLA path
         cfg = dataclasses.replace(cfg, backend=HitBackend.BRUTE)
 
     refr0 = jnp.broadcast_to(start_substance(scene, org[0]), (org.shape[0],))
@@ -102,80 +88,28 @@ def render_rays(scene: Scene, cfg: RenderConfig, org: Array, dir: Array,
 
 
 def render_hdr(scene: Scene, camera: Camera, cfg: RenderConfig,
-               key: Optional[Array] = None, accel=None,
-               tables=None) -> Array:
+               key: Optional[Array] = None, accel=None) -> Array:
     """Full-frame HDR render -> [h, w, 3] float32 (linear, pre-tone-map).
 
-    ``tables`` — optional cached per-tile candidate tables for the TILED
-    backend (render_tiled.frame_tables); without them the tables are built
-    host-side from the concrete scene (fails under jit — precompute and
-    pass them in when jitting over the scene).
+    ``accel`` is the octree of the OCTREE backend (accel.octree.build_octree).
     """
-    from .config import HitBackend
-
     if key is None:
         key = jax.random.key(0)
-    if (cfg.backend == HitBackend.TILED
-            and scene.n_prims <= TILED_MIN_PRIMS and tables is None):
-        # Measured crossover (r4, v5e-lite): at 512^2 / 5k prims TILED
-        # sustains 4.48e6 rays/s vs PALLAS's 1.19e6 — the sweep-mode
-        # rounds (frustum bounce-0 candidates + live-compacted whole-table
-        # rounds with listed cull + near-to-far early exit) now beat the
-        # uncompacted wavefront well below the old 16k bar. Sub-2k scenes
-        # keep PALLAS/FUSED (per-round sort floors dominate tiny scenes).
-        # Dispatch, not the caller, owns that knowledge.
-        cfg = dataclasses.replace(cfg, backend=HitBackend.PALLAS)
-    if cfg.backend == HitBackend.TILED and scene.has_both:
-        # the tiled kernels' in-kernel mode decode has no BOTH branch
-        # (terminal default OR Fresnel split) — route to the wavefront
-        # path, whose _bounce owns both semantics
-        cfg = dataclasses.replace(cfg, backend=HitBackend.PALLAS)
-    if cfg.backend == HitBackend.TILED:
-        from . import render_tiled as rtl
+    if cfg.backend == HitBackend.FUSED and trace_fused.supports(scene):
+        # rays are generated inside the kernel: no ray tensors at all
+        refr0 = (start_substance(scene, camera.pos)
+                 if scene.has_transmission else None)
 
-        if tables is None:
-            tables = rtl.frame_tables(scene, camera)
-
-        if scene.textures.has_images or scene.sky_box is not None:
-            # image scenes: solid-search record pass + flat replay shading
-            # (in-loop image shading costs ~3x per round — an XLA fusion
-            # pathology; see render_frame_tiled_replay_shaded)
-            def one_tiled(s):
-                return rtl.render_frame_tiled_replay_shaded(
-                    scene, cfg, camera, tables=tables, key=key, sample=s,
-                    accel=accel)
-        else:
-            def one_tiled(s):
-                return rtl.render_frame_tiled(
-                    scene, cfg, camera, tables=tables, key=key, sample=s,
-                    accel=accel)
+        def one_frame(s):
+            return trace_fused.trace_frame_fused(
+                scene, cfg, camera, key=key, sample=s, start_refr=refr0)
 
         if cfg.spp == 1 or not _stochastic(scene, cfg):
-            return one_tiled(0)
+            return one_frame(0)
         acc = jax.lax.fori_loop(
-            0, cfg.spp, lambda s, a: a + one_tiled(s),
+            0, cfg.spp, lambda s, a: a + one_frame(s),
             jnp.zeros((camera.h, camera.w, 3), jnp.float32))
         return acc / cfg.spp
-    if cfg.backend == HitBackend.FUSED:
-        from .kernels import trace_fused
-
-        if trace_fused.supports_frame(scene):
-            # headline path: rays are generated inside the kernel — no
-            # raygen/pack stage, no ray tensors in HBM at all
-            refr0 = (start_substance(scene, camera.pos)
-                     if scene.has_transmission else None)
-
-            def one_frame(s):
-                return trace_fused.trace_frame_fused(
-                    scene, cfg, camera, key=key, sample=s,
-                    start_refr=refr0)
-
-            if cfg.spp == 1 or not _stochastic(scene, cfg):
-                return one_frame(0)
-            acc = jax.lax.fori_loop(
-                0, cfg.spp, lambda s, a: a + one_frame(s),
-                jnp.zeros((camera.h, camera.w, 3), jnp.float32))
-            return acc / cfg.spp
     org, dir = pixel_rays(camera)
     ray_id = jnp.arange(org.shape[0], dtype=jnp.int32)
     colors = render_rays(scene, cfg, org, dir, key, ray_id, accel=accel)

@@ -1,6 +1,6 @@
 """Image I/O for textures.
 
-TPU re-design of the reference ImageTexture loader
+Re-design of the reference ImageTexture loader
 (/root/reference/src/texture/texture_image.ts:76-136): the DOM
 Image->canvas->getImageData decode with manual flip loops becomes PIL/NumPy
 decode with array ops. The async-with-fallback contract (get_color returns

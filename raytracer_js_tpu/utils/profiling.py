@@ -3,7 +3,7 @@
 The reference's only instrumentation is a wall-clock FPS HUD with a
 32-sample simple moving average (/root/reference/src/main.ts:244-263) and a
 static debug ray counter (raytracer.ts:77,98). This module provides the
-TPU-grade equivalents SURVEY.md §5 calls out as new work: rays/s meters,
+accelerator-grade equivalents SURVEY.md §5 calls out as new work: rays/s meters,
 an SMA matching the reference HUD's, and ``jax.profiler`` trace capture.
 """
 from __future__ import annotations

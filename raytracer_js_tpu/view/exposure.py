@@ -1,6 +1,6 @@
 """Progressive HDR exposure accumulation + luma statistics.
 
-TPU re-design of the reference ``ExposureBuffer``
+Re-design of the reference ``ExposureBuffer``
 (/root/reference/src/view/exposure_buffer.ts): the per-pixel Float32Array
 running mean (``new*w + old*(1-w)``, ``w = 1/(1+frames)``,
 exposure_buffer.ts:53-91) becomes one fused array op over the whole frame,
@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree
 
 Array = jnp.ndarray
 
@@ -28,11 +28,11 @@ Array = jnp.ndarray
 LUMA_W = (0.299, 0.587, 0.114)
 
 
-@struct.dataclass
+@pytree.dataclass
 class ExposureBuffer:
     pixels: Array       # [h, w, 3] f32 running-mean HDR
     frame_count: Array  # [] i32 — number of accumulated exposure frames
-    max_frames: int = struct.field(pytree_node=False, default=-1)
+    max_frames: int = pytree.field(pytree_node=False, default=-1)
 
     @property
     def shape(self):

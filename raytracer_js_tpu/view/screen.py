@@ -1,11 +1,11 @@
 """Output sinks — the Screen abstraction.
 
-TPU re-design of the reference Screen/CanvasScreen
+Re-design of the reference Screen/CanvasScreen
 (/root/reference/src/view/screen.ts:25-47, screen_canvas.ts): the browser
 canvas ``ImageData`` sink becomes u8 quantization (screen_canvas.ts:92-94,
 ``dynamic_range()`` = 8 bits, :96-98) plus file writers — PNG via PIL when
 available, always-available ``.npy``. Batch rendering replaces interactive
-flushes (SURVEY.md §2 #31/#33: interactivity is out of scope on TPU).
+flushes (SURVEY.md §2 #31/#33: interactivity is out of scope on an accelerator).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Tone mapping — dynamic-range window selection.
 
-TPU re-design of the reference ToneMapper hierarchy
+Re-design of the reference ToneMapper hierarchy
 (/root/reference/src/view/tone_mapping.ts:21-79): the virtual
 ``get_dynamic_range(ebuffer)`` dispatch becomes a pure function of the
 buffer statistics selected by a static enum; the two full-buffer scalar

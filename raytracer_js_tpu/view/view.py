@@ -2,7 +2,7 @@
 
 The analogue of the reference ``View`` (/root/reference/src/view/view.ts:23-41)
 composed with the progressive loop of main.ts:210: ``progressive_render``
-drives render -> accumulate -> tonemap across exposure frames, the TPU
+drives render -> accumulate -> tonemap across exposure frames, the batch
 equivalent of the reference's 60 Hz accumulation ticks (SURVEY.md §3.5).
 """
 from __future__ import annotations

@@ -88,16 +88,17 @@ def test_both_split_changes_image_and_is_deterministic():
 
 
 def test_both_backends_agree():
-    """PALLAS (kernel search + XLA shading) must match BRUTE bitwise-ish;
-    FUSED/TILED route BOTH scenes to the wavefront path by eligibility."""
+    """FUSED routes BOTH scenes to the XLA wavefront path (supports() is
+    False), so every backend renders BRUTE's image."""
+    from raytracer_js_tpu.kernels import trace_fused
+
     scene = both_scene()
+    assert not trace_fused.supports(scene)
     cam = rt.make_camera((0.0, 0.0, 0.5), 16, 16, np.pi / 2, np.pi / 2)
     key = jax.random.key(11)
     out = {}
-    for bk in (HitBackend.BRUTE, HitBackend.PALLAS, HitBackend.FUSED,
-               HitBackend.TILED):
+    for bk in (HitBackend.BRUTE, HitBackend.FUSED):
         cfg = RenderConfig(refmax=4, backend=bk, fresnel_both=True)
         out[bk] = np.asarray(rt.render_hdr(scene, cam, cfg, key=key))
-    for bk in (HitBackend.PALLAS, HitBackend.FUSED, HitBackend.TILED):
-        np.testing.assert_allclose(out[bk], out[HitBackend.BRUTE],
-                                   atol=1e-4)
+    np.testing.assert_array_equal(out[HitBackend.FUSED],
+                                  out[HitBackend.BRUTE])

@@ -77,7 +77,7 @@ def test_config3_mesh_matches_oracle():
     cfg = RenderConfig(refmax=3)
     img = np.asarray(render_hdr(scene, cam, cfg))
     ref = oracle.render(scene, cam, cfg)
-    # Image textures quantize UV to texel indices; float32 (TPU) vs float64
+    # Image textures quantize UV to texel indices; float32 vs float64
     # (oracle) geometry flips the index on a few texel-boundary pixels.
     # Those pixels differ by at most one texel step; everything else must
     # hold the golden 1e-4 contract.
@@ -88,7 +88,7 @@ def test_config3_mesh_matches_oracle():
 
 
 def test_config3_5k_mesh_renders_with_octree():
-    """The full 5k-triangle mesh class: render via octree + pallas backends
+    """The full 5k-triangle mesh class: render via the octree backend
     (no oracle — just structural health: finite, sky visible, mesh hits)."""
     scene = config3_scene(subdiv=4)
     st = mesh_stats(*icosphere(4))
@@ -107,22 +107,3 @@ def test_icosphere_is_spherical():
     v, f = icosphere(2, radius=2.0, center=(1.0, 0.0, 0.0))
     r = np.linalg.norm(v - np.array([1.0, 0.0, 0.0]), axis=1)
     np.testing.assert_allclose(r, 2.0, atol=1e-5)
-
-
-def test_tiled_request_small_scene_dispatches_to_pallas():
-    """render_hdr owns the measured TILED/PALLAS crossover
-    (render.TILED_MIN_PRIMS): a TILED request on a small scene renders via
-    the PALLAS wavefront (no candidate tables) and matches BRUTE exactly."""
-    from raytracer_js_tpu import ResponseType, SceneBuilder
-
-    b = SceneBuilder()
-    b.set_sky(b.add_solid_texture((0.3, 0.4, 0.6)))
-    m = b.add_material(ResponseType.REFLECTION)
-    b.add_sphere((4, 0, 0), 1.0, m, b.add_solid_texture((0.9, 0.2, 0.1)))
-    b.add_box((0, 0, -21), 40.0, m, b.add_solid_texture((0.5, 0.5, 0.5)))
-    scene = b.build()
-    cam = make_camera((0, 0, 0.5), 64, 32, np.pi / 2, np.pi / 4)
-    img_t = np.asarray(render_hdr(
-        scene, cam, RenderConfig(refmax=2, backend=HitBackend.TILED)))
-    img_b = np.asarray(render_hdr(scene, cam, RenderConfig(refmax=2)))
-    np.testing.assert_allclose(img_t, img_b, rtol=1e-4, atol=1e-5)

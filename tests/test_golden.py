@@ -1,4 +1,4 @@
-"""Golden-image tests: every TPU path must be allclose to the scalar oracle.
+"""Golden-image tests: every render path must be allclose to the scalar oracle.
 
 The reference has no golden tests (SURVEY.md §4); BASELINE.md mandates
 pixel allclose(1e-4) vs the scalar reference path."""

@@ -1,10 +1,10 @@
-"""Parity tests for the fused replay forward/backward Pallas kernels.
+"""XLA path-replay gradients vs the search gradient and finite differences.
 
-Contract: kernels/replay_grad.replay_colors matches ops/trace.trace_rays
-replay colors, and its custom-VJP gradients match jax.grad through the XLA
-replay path on every Scene float leaf AND on (org, dir) — the camera-pose
-gradient (reference behavior raytracer.ts:166-277 via the scalar oracle;
-the search winners are supplied, stop_gradient'ed in both paths).
+The replay (ops/trace.trace_rays with a recorded ``pid_seq``) is the
+gradient step of ``optim.fit(replay_every=N)``. Its colors must equal the
+search path's, its gradients on every Scene float leaf AND on (org, dir) —
+the camera-pose path — must equal the search gradients, and a central
+finite difference of the loss must agree with them.
 """
 import jax
 import jax.numpy as jnp
@@ -13,7 +13,6 @@ import pytest
 
 from raytracer_js_tpu import RenderConfig, SceneBuilder, make_camera
 from raytracer_js_tpu.config import HitBackend, ResponseType
-from raytracer_js_tpu.kernels import replay_grad
 from raytracer_js_tpu.models.camera import pixel_rays
 from raytracer_js_tpu.ops.trace import record_paths, trace_rays
 from raytracer_js_tpu.parallel.sharding import float_partition
@@ -40,111 +39,98 @@ def _scene(seed=0, n_sph=9):
     return b.build()
 
 
-def _rays(n=4096, seed=1):
-    cam = make_camera((0.0, 0.0, 0.5), 64, 64, np.pi / 2, np.pi / 2)
+def _rays(w=32, h=32):
+    cam = make_camera((0.0, 0.0, 0.5), w, h, np.pi / 2, np.pi / 2)
     org, dirs = pixel_rays(cam)
-    return org[:n], dirs[:n]
+    return org, dirs, jnp.arange(org.shape[0], dtype=jnp.int32)
+
+
+def _losses(scene, cfg, target):
+    org, dirs, rid = _rays()
+    key = jax.random.key(0)
+    rec = record_paths(scene, cfg, org, dirs, key, rid)
+    params, rebuild = float_partition(scene)
+    n = org.shape[0]
+
+    def loss(params, org, dirs, pid_seq):
+        st = trace_rays(rebuild(params), cfg, org, dirs, key, rid,
+                        pid_seq=pid_seq)
+        return jnp.sum((st.color - target) ** 2) / n
+
+    return params, org, dirs, rec, loss
 
 
 @pytest.mark.parametrize("refmax", [1, 2, 3])
-def test_forward_matches_xla_replay(refmax):
+def test_replay_forward_matches_search(refmax):
     scene = _scene()
     cfg = RenderConfig(refmax=refmax, backend=HitBackend.BRUTE, unroll=True)
-    assert replay_grad.supports(scene, cfg)
-    org, dirs = _rays()
-    n = org.shape[0]
-    rid = jnp.arange(n, dtype=jnp.int32)
+    org, dirs, rid = _rays()
     key = jax.random.key(0)
     rec = record_paths(scene, cfg, org, dirs, key, rid)
-    st = trace_rays(scene, cfg, org, dirs, key, rid, pid_seq=rec)
-    got = replay_colors = replay_grad.replay_colors(
-        scene, cfg, org, dirs, rec, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(st.color),
-                               rtol=2e-5, atol=2e-5)
+    search = trace_rays(scene, cfg, org, dirs, key, rid)
+    replay = trace_rays(scene, cfg, org, dirs, key, rid, pid_seq=rec)
+    np.testing.assert_allclose(np.asarray(replay.color),
+                               np.asarray(search.color), rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(np.asarray(replay.status),
+                                  np.asarray(search.status))
+
+
+def _assert_grads_match(scene, cfg):
+    rng = np.random.default_rng(3)
+    target = jnp.asarray(rng.uniform(0, 1, (32 * 32, 3)).astype(np.float32))
+    params, org, dirs, rec, loss = _losses(scene, cfg, target)
+    l_s, g_s = jax.value_and_grad(loss, argnums=(0, 1, 2))(
+        params, org, dirs, None)
+    l_r, g_r = jax.value_and_grad(loss, argnums=(0, 1, 2))(
+        params, org, dirs, rec)
+    np.testing.assert_allclose(float(l_r), float(l_s), rtol=1e-6)
+    for a, b in zip(g_s[0], g_r[0]):            # scene leaves
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
+                                   rtol=1e-5, atol=1e-7)
+    for i in (1, 2):                            # ray cotangents (pose path)
+        np.testing.assert_allclose(np.asarray(g_r[i]), np.asarray(g_s[i]),
+                                   rtol=1e-5, atol=1e-7)
 
 
 @pytest.mark.parametrize("refmax", [2, 3])
-def test_grads_match_xla_replay(refmax):
+def test_replay_grads_match_search(refmax):
+    _assert_grads_match(_scene(), RenderConfig(refmax=refmax, unroll=True))
+
+
+def test_replay_grads_match_search_many_spheres():
+    _assert_grads_match(_scene(seed=11, n_sph=37), RenderConfig(refmax=2))
+
+
+def test_replay_grad_matches_finite_difference():
+    """Central difference of the replay loss along the texture color and
+    the sphere radius with the largest gradients vs the autodiff gradient
+    (recording held fixed)."""
     scene = _scene()
-    cfg = RenderConfig(refmax=refmax, backend=HitBackend.BRUTE, unroll=True)
-    org, dirs = _rays()
-    n = org.shape[0]
-    rid = jnp.arange(n, dtype=jnp.int32)
-    key = jax.random.key(0)
-    rec = record_paths(scene, cfg, org, dirs, key, rid)
-    params, rebuild = float_partition(scene)
-    rng = np.random.default_rng(3)
-    target = jnp.asarray(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    cfg = RenderConfig(refmax=2)
+    target = jnp.full((32 * 32, 3), 0.3, jnp.float32)
+    params, org, dirs, rec, loss = _losses(scene, cfg, target)
+    grads = jax.grad(loss)(params, org, dirs, rec)
+    f = jax.jit(lambda p: loss(p, org, dirs, rec))
+    leaves = {id(l): i for i, l in enumerate(params)}
+    rgb_i = leaves[id(scene.textures.solid_rgb)]
+    rad_i = leaves[id(scene.sphere_radius)]
+    for li, eps in ((rgb_i, 1e-2), (rad_i, 1e-3)):
+        g = np.asarray(grads[li])
+        idx = np.unravel_index(np.argmax(np.abs(g)), g.shape)
 
-    def loss_xla(params, org, dirs):
-        st = trace_rays(rebuild(params), cfg, org, dirs, key, rid,
-                        pid_seq=rec)
-        return jnp.sum((st.color - target) ** 2) / n
-
-    def loss_kern(params, org, dirs):
-        col = replay_grad.replay_colors(rebuild(params), cfg, org, dirs,
-                                        rec, interpret=True)
-        return jnp.sum((col - target) ** 2) / n
-
-    l0, g0 = jax.value_and_grad(loss_xla, argnums=(0, 1, 2))(
-        params, org, dirs)
-    l1, g1 = jax.value_and_grad(loss_kern, argnums=(0, 1, 2))(
-        params, org, dirs)
-    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-5)
-    # scene leaves
-    for a, b in zip(g0[0], g1[0]):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=2e-4, atol=2e-6)
-    # ray cotangents (camera-pose gradient path)
-    np.testing.assert_allclose(np.asarray(g1[1]), np.asarray(g0[1]),
-                               rtol=2e-4, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(g1[2]), np.asarray(g0[2]),
-                               rtol=2e-4, atol=2e-6)
+        def shifted(delta):
+            p = list(params)
+            p[li] = p[li].at[idx].add(delta)
+            return float(f(p))
+        fd = (shifted(eps) - shifted(-eps)) / (2 * eps)
+        ad = float(grads[li][idx])
+        assert abs(ad) > 1e-6, (li, idx, ad)
+        np.testing.assert_allclose(ad, fd, rtol=2e-2, atol=1e-5)
 
 
-def test_listed_mode_matches_xla_replay():
-    """LISTED kernels (per-tile compact sphere-id lists) reproduce the
-    same colors and gradients as the full-scan kernels / XLA replay."""
-    scene = _scene(seed=11, n_sph=37)
-    cfg = RenderConfig(refmax=2, backend=HitBackend.BRUTE, unroll=True)
-    org, dirs = _rays()
-    n = org.shape[0]
-    rid = jnp.arange(n, dtype=jnp.int32)
-    key = jax.random.key(0)
-    rec = record_paths(scene, cfg, org, dirs, key, rid)
-    tab = replay_grad.build_tile_lists(np.asarray(rec), scene.n_spheres)
-    assert tab is not None and tab[:, 0].max() >= 1
-    params, rebuild = float_partition(scene)
-    target = jnp.zeros((n, 3), jnp.float32)
-
-    def loss_xla(params, org, dirs):
-        st = trace_rays(rebuild(params), cfg, org, dirs, key, rid,
-                        pid_seq=rec)
-        return jnp.sum((st.color - target) ** 2) / n
-
-    def loss_kern(params, org, dirs):
-        col = replay_grad.replay_colors(rebuild(params), cfg, org, dirs,
-                                        rec, interpret=True,
-                                        tile_lists=tab)
-        return jnp.sum((col - target) ** 2) / n
-
-    l0, g0 = jax.value_and_grad(loss_xla, argnums=(0, 1, 2))(
-        params, org, dirs)
-    l1, g1 = jax.value_and_grad(loss_kern, argnums=(0, 1, 2))(
-        params, org, dirs)
-    np.testing.assert_allclose(float(l1), float(l0), rtol=1e-5)
-    for a, b in zip(g0[0], g1[0]):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
-                                   rtol=2e-4, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(g1[1]), np.asarray(g0[1]),
-                               rtol=2e-4, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(g1[2]), np.asarray(g0[2]),
-                               rtol=2e-4, atol=2e-6)
-
-
-def test_sharded_fit_replay_kernel_matches_unsharded():
-    """The kernel replay step composes with the mesh: params marked
-    device-varying + explicit psum == the implicit-psum XLA semantics."""
+def test_sharded_fit_replay_matches_unsharded():
+    """The XLA replay step composes with the mesh: the implicit psum of
+    replicated-param cotangents gives the unsharded losses."""
     from raytracer_js_tpu.optim import FitConfig, fit
     from raytracer_js_tpu.parallel import make_mesh
     from raytracer_js_tpu.render import render_rays
@@ -156,19 +142,9 @@ def test_sharded_fit_replay_kernel_matches_unsharded():
     org, dirs = pixel_rays(cams[0])
     rid = jnp.arange(org.shape[0], dtype=jnp.int32)
     targets = jnp.stack([render_rays(scene_true, cfg, org, dirs, key, rid)])
-
     start = _scene(seed=7, n_sph=4)
     fc = FitConfig(steps=3, lr=1e-2, replay_every=1)
     r_plain = fit(start, cfg, cams, targets, fc, key=key)
     r_mesh = fit(start, cfg, cams, targets, fc, key=key, mesh=make_mesh())
     np.testing.assert_allclose(r_mesh.losses, r_plain.losses,
                                rtol=1e-5, atol=1e-7)
-
-
-def test_supports_gates():
-    scene = _scene()
-    assert replay_grad.supports(scene, RenderConfig(refmax=2))
-    assert not replay_grad.supports(scene, RenderConfig(refmax=2, spp=4))
-    assert not replay_grad.supports(scene, RenderConfig(refmax=9))
-    big = _scene(n_sph=replay_grad.SCAN_MAX_PRIMS + 8)
-    assert not replay_grad.supports(big, RenderConfig(refmax=2))

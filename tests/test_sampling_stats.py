@@ -91,7 +91,7 @@ def test_scatter_direction_limits_and_norm():
 
 
 def test_spp_variance_law():
-    """Monte-Carlo estimator variance scales ~ 1/spp (the TPU analogue of
+    """Monte-Carlo estimator variance scales ~ 1/spp (the array analogue of
     the reference's across-frames progressive averaging convergence,
     exposure_buffer.ts:53-91)."""
     from raytracer_js_tpu import RenderConfig, ResponseType, SceneBuilder

@@ -1,4 +1,7 @@
-"""Fused full-trace Pallas kernel vs the XLA wavefront loop (interpret mode)."""
+"""Fused whole-trace kernel (Pallas, Triton route) vs the XLA wavefront loop.
+
+On the CPU the kernel runs in the Pallas interpreter; the same program
+compiles through Triton on a GPU (chip_smoke.py checks it there)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +28,8 @@ def _compare(scene, cam, cfg):
 
 def test_supports_gate():
     assert supports(config1_scene())
-    # r2: transmission and roughness are in-class (in-kernel containment
-    # scan / counter-RNG scatter); only image textures remain excluded
+    # transmission and roughness are in-class (in-kernel containment scan
+    # / counter-RNG scatter); image textures are excluded
     assert supports(config1_scene(with_glass=True))
     b = SceneBuilder()
     b.set_sky(b.add_solid_texture((0, 0, 0)))
@@ -147,47 +150,6 @@ def test_fused_empty_scene_pure_sky():
     _compare(scene, cam, RenderConfig(refmax=2))
 
 
-def test_fused_shortlist_parity(monkeypatch):
-    """Bounce-0 frustum shortlists must be exact culling: spheres spread
-    across the view (some behind the camera, one enclosing it) trace
-    identically to the full scan. The shortlist is opt-in (off by default
-    below RT_SHORTLIST_MIN spheres), so force it on here."""
-    import raytracer_js_tpu.kernels.trace_fused as tf
-
-    monkeypatch.setattr(tf, "SHORTLIST_MIN_SPHERES", 16)
-    b = SceneBuilder()
-    b.set_sky(b.add_solid_texture((0.2, 0.3, 0.4)))
-    white = b.add_solid_texture((1.0, 1.0, 1.0))
-    diffuse = b.add_material(ResponseType.REFLECTION)
-    mirror = b.add_material(ResponseType.REFLECTION, mirror=True)
-    light = b.add_material(ResponseType.REFLECTION, light=True)
-    rng = np.random.default_rng(7)
-    for i in range(18):
-        c = rng.uniform([-6.0, -6.0, -6.0], [8.0, 6.0, 6.0])
-        tex = b.add_solid_texture(rng.uniform(0.2, 1.0, 3))
-        b.add_sphere(c, float(rng.uniform(0.3, 1.2)),
-                     (diffuse, mirror)[i % 2], tex)
-    b.add_sphere((0.0, 0.0, 0.0), 20.0, diffuse, white)  # encloses camera
-    b.add_sphere((5.0, 0.0, 2.0), 0.8, light, white)
-    scene = b.build()
-    assert scene.n_spheres >= tf.SHORTLIST_MIN_SPHERES
-    cam = make_camera((0.0, 0.0, 0.5), 16, 16, np.pi / 2, np.pi / 2)
-    _compare(scene, cam, RenderConfig(refmax=3))
-    # and the culling actually rejects something for narrow blocks
-    org, dirs = pixel_rays(cam)
-    quant = tf.FUSE_SUB * tf.SP_LANE
-    n_pad = -(-org.shape[0] // quant) * quant
-    org_p = jnp.concatenate(
-        [org, jnp.broadcast_to(org[-1], (n_pad - org.shape[0], 3))])
-    dir_p = jnp.concatenate(
-        [dirs, jnp.broadcast_to(dirs[-1], (n_pad - dirs.shape[0], 3))])
-    ids, counts = tf._sphere_shortlists(
-        org_p, dir_p, scene.sphere_center, scene.sphere_radius,
-        n_pad // quant, scene.n_spheres)
-    assert int(counts.min()) >= 1
-    assert int(counts.max()) <= scene.n_spheres
-
-
 def test_render_fused_backend_end_to_end():
     from raytracer_js_tpu import render_hdr
     from raytracer_js_tpu.config import HitBackend
@@ -195,13 +157,13 @@ def test_render_fused_backend_end_to_end():
     scene = config1_scene()
     cam = make_camera((0.0, 0.0, 0.5), 16, 16, np.pi / 2, np.pi / 2)
     img_b = np.asarray(render_hdr(scene, cam, config1_cfg()))
-    # FUSED render_hdr routes to the frame kernel (in-kernel raygen +
-    # unit-|d| sphere quadratic): equal to ULP noise, not bitwise
+    # FUSED render_hdr routes to the frame kernel (in-kernel raygen):
+    # equal to ULP noise, not bitwise
     img_f = np.asarray(render_hdr(scene, cam,
                                   config1_cfg(backend=HitBackend.FUSED)))
     np.testing.assert_allclose(img_f, img_b, rtol=1e-4, atol=1e-5)
-    # transmission is in-class since r2: the glass scene runs the fused
-    # kernel (ULP-level agreement), it no longer falls back to brute
+    # transmission is in-class: the glass scene runs the fused kernel
+    # (ULP-level agreement)
     glass = config1_scene(with_glass=True)
     img_g = np.asarray(render_hdr(glass, cam,
                                   config1_cfg(backend=HitBackend.FUSED)))
@@ -221,14 +183,14 @@ def test_render_fused_backend_end_to_end():
 
 def test_frame_fused_nonsquare_offgrid():
     """Frame kernel (in-kernel raygen) on a non-square image whose pixel
-    count is not a multiple of the ray-tile quantum: the in-kernel
-    (x, y) <- index decode must match pixel_rays exactly."""
+    count is not a multiple of the ray block: the in-kernel (x, y) <- index
+    decode must match pixel_rays exactly."""
     from raytracer_js_tpu import render_hdr
     from raytracer_js_tpu.config import HitBackend
     from raytracer_js_tpu.kernels import trace_fused as tf
 
     scene = config1_scene()
-    assert tf.supports_frame(scene)
+    assert tf.supports(scene)
     cam = make_camera((0.2, -0.3, 0.5), 40, 24, np.pi / 2, np.pi / 3,
                       rot_h=0.3, rot_v=-0.2)
     img_b = np.asarray(render_hdr(scene, cam, config1_cfg()))
@@ -239,8 +201,8 @@ def test_frame_fused_nonsquare_offgrid():
 
 
 def test_frame_fused_mirror_bounces():
-    """Mirror continuation through the frame kernel: reflected directions
-    stay unit, so the unit-|d| specialization must hold at bounce >= 1."""
+    """Mirror continuation through the frame kernel over 4 bounces
+    (exhaustion and the emissive inverse-square law)."""
     from raytracer_js_tpu import RenderConfig, render_hdr
     from raytracer_js_tpu.config import HitBackend
 
@@ -261,48 +223,80 @@ def test_frame_fused_mirror_bounces():
     np.testing.assert_allclose(img_f, img_b, rtol=1e-4, atol=1e-5)
 
 
-def test_frame_fused_tile_shortlist_parity(monkeypatch):
-    """Per-tile analytic cone shortlists must be exact culling: a scene of
-    spheres scattered across/behind/around the camera renders identically
-    (to ULP noise) with and without the shortlist path."""
+@pytest.mark.parametrize("n", [1, 37, 129, 3 * 128 - 5])
+def test_wavefront_padding_non_multiple(n):
+    """Ray counts off the block are edge-padded and sliced back: outputs
+    have exactly n rows and match the XLA loop."""
     import raytracer_js_tpu.kernels.trace_fused as tf
+
+    assert n % tf.BLOCK
+    scene = config1_scene()
+    cam = make_camera((0.0, 0.0, 0.5), 24, 16, np.pi / 2, np.pi / 2)
+    org, dirs = pixel_rays(cam)
+    org, dirs = org[:n], dirs[:n]
+    rid = jnp.arange(n, dtype=jnp.int32)
+    cfg = config1_cfg()
+    ref = trace_rays(scene, cfg, org, dirs, jax.random.key(0), rid)
+    color, status = trace_rays_fused(scene, cfg, org, dirs)
+    assert color.shape == (n, 3) and status.shape == (n,)
+    np.testing.assert_allclose(np.asarray(color), np.asarray(ref.color),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(status), np.asarray(ref.status))
+
+
+@pytest.mark.parametrize("w,h", [(13, 7), (129, 3)])
+def test_frame_padding_non_multiple(w, h):
+    """Frames whose pixel count is off the block: padded lanes repeat the
+    last pixel and are dropped; the image matches BRUTE."""
     from raytracer_js_tpu import render_hdr
     from raytracer_js_tpu.config import HitBackend
+    from raytracer_js_tpu.kernels import trace_fused as tf
 
-    monkeypatch.setattr(tf, "FRAME_SHORT_MIN", 4)
-    b = SceneBuilder()
-    b.set_sky(b.add_solid_texture((0.2, 0.3, 0.4)))
-    white = b.add_solid_texture((1.0, 1.0, 1.0))
-    diffuse = b.add_material(ResponseType.REFLECTION)
-    mirror = b.add_material(ResponseType.REFLECTION, mirror=True)
-    light = b.add_material(ResponseType.REFLECTION, light=True)
-    rng = np.random.default_rng(11)
-    for i in range(14):
-        c = rng.uniform([-6.0, -6.0, -6.0], [8.0, 6.0, 6.0])
-        tex = b.add_solid_texture(rng.uniform(0.2, 1.0, 3))
-        b.add_sphere(c, float(rng.uniform(0.2, 1.0)),
-                     (diffuse, mirror)[i % 2], tex)
-    b.add_sphere((0.0, 0.0, 0.0), 18.0, diffuse, white)  # encloses camera
-    b.add_sphere((5.0, 0.0, 2.0), 0.8, light, white)
-    scene = b.build()
-    # 36x24: partial tiles on both axes, 2 bounces — the shortlist
-    # exactness property is size-independent
-    cam = make_camera((0.0, 0.0, 0.5), 36, 24, np.pi / 2, np.pi / 2,
-                      rot_h=0.4)
-    cfg = RenderConfig(refmax=2, backend=HitBackend.FUSED)
-    img_s = np.asarray(render_hdr(scene, cam, cfg))
-    monkeypatch.setenv("RT_NO_FRAME_SHORT", "1")
-    img_full = np.asarray(render_hdr(scene, cam, cfg))
-    np.testing.assert_array_equal(img_s, img_full)
-    # brute stays the semantic reference (same refmax: the r5 shape trim
-    # left one pixel needing a 3rd bounce, which a refmax-mismatched
-    # comparison counts as a spurious EXHAUST-vs-color diff)
-    img_b = np.asarray(render_hdr(
-        scene, cam, RenderConfig(refmax=2, backend=HitBackend.BRUTE)))
-    np.testing.assert_allclose(img_s, img_b, rtol=1e-4, atol=1e-5)
-    # and the shortlist actually culls for off-axis tiles
-    tab = np.asarray(tf._tile_shortlists(
-        cam, -(-cam.h // tf.FUSE_SUB), -(-cam.w // tf.SP_LANE),
-        scene.sphere_center, scene.sphere_radius))
-    assert tab[:, 0].min() >= 1
-    assert tab[:, 0].min() < scene.n_spheres
+    assert (w * h) % tf.BLOCK
+    scene = config1_scene()
+    cam = make_camera((0.0, 0.0, 0.5), w, h, np.pi / 2, np.pi / 3)
+    img_f = np.asarray(render_hdr(scene, cam,
+                                  config1_cfg(backend=HitBackend.FUSED)))
+    img_b = np.asarray(render_hdr(scene, cam, config1_cfg()))
+    assert img_f.shape == (h, w, 3)
+    np.testing.assert_allclose(img_f, img_b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("backend,interpret", [("cpu", True), ("gpu", False)])
+def test_interpreter_only_on_cpu(monkeypatch, backend, interpret):
+    import raytracer_js_tpu.kernels.trace_fused as tf
+
+    monkeypatch.setattr(tf.jax, "default_backend", lambda: backend)
+    assert tf.use_interpreter() is interpret
+
+
+def test_other_backends_raise(monkeypatch):
+    """No silent fallback: a backend with no kernel route raises."""
+    import raytracer_js_tpu.kernels.trace_fused as tf
+
+    monkeypatch.setattr(tf.jax, "default_backend", lambda: "metal")
+    with pytest.raises(RuntimeError, match="no kernel route"):
+        tf.use_interpreter()
+    scene = config1_scene()
+    org = jnp.zeros((4, 3), jnp.float32)
+    dirs = jnp.tile(jnp.asarray([[1.0, 0.0, 0.0]], jnp.float32), (4, 1))
+    with pytest.raises(RuntimeError):
+        trace_rays_fused(scene, RenderConfig(refmax=1), org, dirs)
+
+
+def test_compiled_route_lowers_to_triton():
+    """With interpretation off the kernel lowers for CUDA as a Triton
+    custom call (lowering only; compiling needs the card)."""
+    import raytracer_js_tpu.kernels.trace_fused as tf
+    from raytracer_js_tpu.models.camera import angle_tables
+
+    scene = config1_scene(with_glass=True, with_tri=True)
+    cam = make_camera((0.0, 0.0, 0.5), 16, 8, np.pi / 2, np.pi / 2)
+    cfg = RenderConfig(refmax=2)
+    fpar, ipar = tf._params(scene, None, None, cam=cam)
+    lowered = tf._frame_call.trace(
+        angle_tables(cam), fpar, ipar, *tf._pack_prims(scene),
+        meta=tf._meta(scene, cfg, False), w=cam.w, n_pix=cam.w * cam.h,
+        interpret=False).lower(lowering_platforms=("cuda",))
+    text = lowered.as_text()
+    assert "triton" in text and "div.rn.f32" in text
